@@ -1,0 +1,184 @@
+"""The whole slice: one train step (forward, gradient, Adam with the
+texture group) of the joint-rendering model (decouple_rendering=False) with
+the full loss stack and a random VGG, in the PyTorch port against the JAX
+package from the same init. The JAX opacity-noise and overlap-point draws
+are injected into the port.
+
+Tolerances: per-loss-term rtol 1e-4; per-leaf gradient max |diff| <= 1e-3
+of that leaf's max |g|; parameters after 3 Adam steps atol 3e-4 (the JAX
+package's own float floor for 3 steps, tests/test_spatial.py)."""
+
+import copy
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from dbw_tpu.models.dbw import BlocksWorld as JaxBlocksWorld
+from dbw_tpu.ops.rotations import look_at_rotation as jax_look_at
+from dbw_tpu.train.optimizer import create_optimizer as jax_create_optimizer
+from dbw_torch.convert import scene_params_from_numpy, scene_params_to_numpy
+from dbw_torch.models.dbw import BlocksWorld
+from dbw_torch.train.optimizer import create_optimizer
+
+LOSS_RTOL = 1e-4
+GRAD_REL = 1e-3
+PARAM_ATOL = 3e-4
+# In the fine phase (sigma 5e-6) the ground pose's gradient is a small sum
+# of large cancelling edge terms (~1/sigma per fragment): the JAX package's
+# own jit and eager gradients of T_ground differ by 1.6e-3 of its max there
+# (R_6d_ground 3.5e-4), so those two leaves are held to 5e-3.
+FINE_GROUND_REL = 5e-3
+
+H, W, B = 24, 32, 2
+N_ADAM = 3
+FINE_EPOCH = 1600
+CFG = dict(
+    mesh=dict(n_blocks=3, txt_size=16, T_range=[0.1, 0.1, 0.1],
+              opacity_init=0.9),
+    renderer=dict(faces_per_pixel=3, cameras=dict(name="perspective"),
+                  detach_bary=True, z_clip=0.001),
+    rend_optim=dict(coarse_learning=1500, decimate_txt=750, decimate_factor=8,
+                    kill_blocks=True, decouple_rendering=False,
+                    opacity_noise=True),
+    loss=dict(rgb_weight=1, perceptual_weight=0.1, parsimony_weight=0.01,
+              tv_weight=0.1, overlap_weight=1),
+)
+TRAIN_CFG = {"training": {"optimizer": {"name": "adam", "lr": 5e-3,
+                                        "texture": {"lr": 5e-2}}}}
+K_NDC = np.zeros((4, 4), np.float32)
+K_NDC[0, 0], K_NDC[1, 1] = 2.8, 2.1
+K_NDC[0, 2] = K_NDC[1, 2] = 0.02
+K_NDC[2, 3] = K_NDC[3, 2] = 1.0
+
+
+def _draws(model, key):
+    """The JAX forward's random draws: opacity noise and overlap points."""
+    k1, k2 = jax.random.split(key)
+    noise = np.asarray(jax.random.normal(k1, (model.n_blocks,)))
+    ou = np.asarray(jax.random.uniform(k2, (model.n_blocks, 1000, 3)))
+    return torch.tensor(noise), torch.tensor(ou)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jm = JaxBlocksWorld((H, W), backend="xla", **copy.deepcopy(CFG))
+    jm.set_camera(K_NDC)
+    tm = BlocksWorld((H, W), **copy.deepcopy(CFG))
+    tm.set_camera(K_NDC)
+    R, T = jax_look_at(3.0, 25.0, jnp.linspace(-40.0, 40.0, B))
+    imgs = np.random.default_rng(0).random((B, H, W, 3), np.float32)
+    Rt, Tt = torch.tensor(np.asarray(R)), torch.tensor(np.asarray(T))
+    it = torch.from_numpy(imgs)
+
+    @jax.jit
+    def loss_grad(params, phase, key):
+        def lf(p):
+            losses = jm.forward(p, phase, jnp.asarray(imgs), R, T, key)
+            return losses["total"], losses
+        (_, losses), g = jax.value_and_grad(lf, has_aux=True)(params)
+        return losses, g
+
+    def torch_step(params, phase, key):
+        noise, ou = _draws(tm, key)
+        for p in params.values():
+            p.grad = None
+        losses = tm.forward(params, phase, it, Rt, Tt, opacity_noise=noise,
+                            overlap_u=ou)
+        losses["total"].backward()
+        grads = {k: (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                     else p.grad.numpy().copy()) for k, p in params.items()}
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    jp = jm.init_params(seed=0)
+    tp = tm.init_params(seed=0)
+    jopt = jax_create_optimizer(TRAIN_CFG, jp)
+    jstate = jopt.init(jp)
+    lrs = {"main": jnp.float32(5e-3), "texture": jnp.float32(5e-2)}
+    topt = create_optimizer(TRAIN_CFG, tp)
+    out = {"coarse": []}
+    base = jax.random.PRNGKey(7)
+    for step in range(N_ADAM):
+        key = jax.random.fold_in(base, step)
+        jl, jg = loss_grad(jp, jm.phase_for_epoch(0), key)
+        tl, tg = torch_step(tp, tm.phase_for_epoch(0), key)
+        out["coarse"].append(({k: float(v) for k, v in jl.items()},
+                              {k: np.asarray(getattr(jg, k)) for k in jg._fields},
+                              tl, tg))
+        updates, jstate = jopt.update(jg, jstate, lrs)
+        jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, updates)
+        topt.step()
+    out["params"] = ({k: np.asarray(getattr(jp, k)) for k in jp._fields},
+                     scene_params_to_numpy(tp))
+
+    # one fine-phase step from the initial params: hard face alpha, sigma 5e-6
+    key = jax.random.PRNGKey(11)
+    jl, jg = loss_grad(jm.init_params(seed=0), jm.phase_for_epoch(FINE_EPOCH), key)
+    tl, tg = torch_step(tm.init_params(seed=0), tm.phase_for_epoch(FINE_EPOCH), key)
+    out["fine"] = ({k: float(v) for k, v in jl.items()},
+                   {k: np.asarray(getattr(jg, k)) for k in jg._fields}, tl, tg)
+    return out
+
+
+def _check_losses(jl, tl):
+    assert set(jl) == set(tl)
+    for k in jl:
+        np.testing.assert_allclose(tl[k], jl[k], rtol=LOSS_RTOL, err_msg=k)
+
+
+def _check_grads(jg, tg, rel=None):
+    assert set(jg) == set(tg)
+    for k in jg:
+        scale = np.abs(jg[k]).max()
+        err = np.abs(tg[k] - jg[k]).max()
+        tol = (rel or {}).get(k, GRAD_REL) * scale
+        assert err <= tol or (scale == 0 and err == 0), (k, err, scale)
+
+
+@pytest.mark.parametrize("step", range(N_ADAM))
+def test_coarse_step_losses_match(runs, step):
+    jl, _, tl, _ = runs["coarse"][step]
+    _check_losses(jl, tl)
+    assert set(jl) == {"rgb", "perceptual", "parsimony", "tv", "overlap", "total"}
+    assert jl["perceptual"] > 0 and jl["tv"] > 0 and jl["parsimony"] > 0
+
+
+@pytest.mark.parametrize("step", range(N_ADAM))
+def test_coarse_step_grads_match(runs, step):
+    _, jg, _, tg = runs["coarse"][step]
+    _check_grads(jg, tg)
+    # every parameter group learns in the coarse phase
+    assert all(np.abs(g).max() > 0 for g in jg.values())
+
+
+def test_overlap_term_is_exercised(runs):
+    assert max(r[0]["overlap"] for r in runs["coarse"]) > 0
+
+
+def test_params_after_adam_steps_match(runs):
+    jp, tp = runs["params"]
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], atol=PARAM_ATOL, err_msg=k)
+    init = BlocksWorld((H, W), **copy.deepcopy(CFG)).init_params_numpy(0)
+    assert all(not np.array_equal(tp[k], init[k]) for k in tp)
+
+
+def test_fine_phase_step_matches(runs):
+    jl, jg, tl, tg = runs["fine"]
+    _check_losses(jl, tl)
+    _check_grads(jg, tg, rel={"R_6d_ground": FINE_GROUND_REL,
+                              "T_ground": FINE_GROUND_REL})
+    # hard alpha: no parsimony/overlap gradient, opacities get none at all
+    assert jl["parsimony"] == 0 and jl["overlap"] == 0
+    assert np.abs(tg["alpha_logit"]).max() == 0
+
+
+def test_convert_round_trip():
+    tm = BlocksWorld((H, W), **copy.deepcopy(CFG))
+    p = tm.init_params_numpy(3)
+    back = scene_params_to_numpy(scene_params_from_numpy(p))
+    for k in p:
+        np.testing.assert_array_equal(back[k], p[k])
