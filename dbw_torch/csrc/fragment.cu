@@ -246,7 +246,7 @@ extern "C" int dbw_frag_fwd(const float* table, const int32_t* ids,
                             int clip_inside, int TH, int TW, int32_t* id00,
                             float* wx, float* wy, float* alpha, float* res,
                             cudaStream_t stream) {
-  if (N == 0) return 0;
+  if (N == 0) return -1;  // nothing to launch
   const int threads = 256;
   frag_fwd_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
       table, ids, vld, px, py, N, sigma, persp, clip_bary, clip_inside, TH, TW,
@@ -259,7 +259,7 @@ extern "C" int dbw_frag_bwd(const int32_t* ids, const float* vld,
                             const float* px, const float* py, const float* res,
                             const float* dalpha, int N, float sigma,
                             int clip_inside, float* dtab, cudaStream_t stream) {
-  if (N == 0) return 0;
+  if (N == 0) return -1;  // nothing to launch
   const int threads = 256;
   frag_bwd_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
       ids, vld, px, py, res, dalpha, N, sigma, clip_inside, dtab);

@@ -18,6 +18,12 @@
 // evaluated without FMA contraction (built with --fmad=false) so they round
 // like the plain PyTorch version.
 //
+// HARD (blur statically 0, the env pass and the hard renderers): coverage is
+// `inside` alone, so the three segment distances and the blur inflation of
+// the tile cull drop out (TPU: the `hard` specialization of `_kernel`). With
+// K = 1 a pixel keeps one (z, face) pair, a running minimum in the same
+// (z, index) order.
+//
 // Bound: arithmetic (~40 flops per pixel-face pair that survives the tile
 // cull); the face table is a few hundred KB and is read once per block.
 
@@ -43,7 +49,7 @@ __device__ __forceinline__ float seg_d2(float ax, float ay, float bx, float by,
   return dx * dx + dy * dy;
 }
 
-template <int KS>
+template <int KS, bool HARD>
 __global__ void __launch_bounds__(NT)
 select_kernel(const float* __restrict__ faces, int F, int H, int W, int K,
               float blur, float inflate, float z_clip, int persp,
@@ -105,7 +111,7 @@ select_kernel(const float* __restrict__ faces, int F, int H, int W, int K,
         const float w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) * inv_area;
         const float w2 = ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * inv_area;
         bool covered = fminf(fminf(w0, w1), w2) >= 0.0f;
-        if (!covered) {
+        if (!HARD && !covered) {
           const float d2 = fminf(fminf(seg_d2(x0, y0, x1, y1, px, py),
                                        seg_d2(x1, y1, x2, y2, px, py)),
                                  seg_d2(x2, y2, x0, y0, px, py));
@@ -163,28 +169,35 @@ select_kernel(const float* __restrict__ faces, int F, int H, int W, int K,
 template <int KS>
 cudaError_t launch(const float* faces, int B, int F, int H, int W, int K,
                    float blur, float inflate, float z_clip, int persp,
-                   int clip_bary, int32_t* out, cudaStream_t stream) {
+                   int clip_bary, int hard, int32_t* out,
+                   cudaStream_t stream) {
   dim3 block(TILE, TILE);
   dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  select_kernel<KS><<<grid, block, 0, stream>>>(
-      faces, F, H, W, K, blur, inflate, z_clip, persp, clip_bary, out);
+  if (hard)
+    select_kernel<KS, true><<<grid, block, 0, stream>>>(
+        faces, F, H, W, K, 0.0f, 0.0f, z_clip, persp, clip_bary, out);
+  else
+    select_kernel<KS, false><<<grid, block, 0, stream>>>(
+        faces, F, H, W, K, blur, inflate, z_clip, persp, clip_bary, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // faces: (B, F, 16) f32 packed rows [x0 y0 x1 y1 x2 y2 z0 z1 z2 valid xmin
-// xmax ymin ymax pad pad]; out: (B, H, W, K) int32. K <= 32.
+// xmax ymin ymax pad pad]; out: (B, H, W, K) int32. K <= 32. hard != 0
+// takes the blur-0 specialization and needs blur == 0.
 extern "C" int dbw_select(const float* faces, int B, int F, int H, int W,
                           int K, float blur, float inflate, float z_clip,
-                          int persp, int clip_bary, int32_t* out,
+                          int persp, int clip_bary, int hard, int32_t* out,
                           cudaStream_t stream) {
-  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || W == 0) return 0;
+  if (K < 1 || K > 32 || (hard && blur != 0.0f))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return -1;  // nothing to launch
 #define DBW_SEL(KS)                                                        \
   if (K <= KS)                                                             \
     return (int)launch<KS>(faces, B, F, H, W, K, blur, inflate, z_clip,    \
-                           persp, clip_bary, out, stream);
+                           persp, clip_bary, hard, out, stream);
   DBW_SEL(1)
   DBW_SEL(2)
   DBW_SEL(4)

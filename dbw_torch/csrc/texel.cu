@@ -52,7 +52,7 @@ __global__ void texel_grad_kernel(const int32_t* __restrict__ id00,
 extern "C" int dbw_texel_grad(const int32_t* id00, const float* wx,
                               const float* wy, const float* g, int N, int R,
                               int TW, float* dmaps, cudaStream_t stream) {
-  if (N == 0) return 0;
+  if (N == 0) return -1;  // nothing to launch
   const int threads = 256;
   texel_grad_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
       id00, wx, wy, g, N, R, TW, dmaps);

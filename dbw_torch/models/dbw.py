@@ -10,9 +10,10 @@ dbw_tpu/models/dbw.py).
 - dead blocks are collapsed to zero-area geometry, never removed, so shapes
   are static.
 
-Ported: the joint rendering branch (env and blocks as one scene through the
-soft training renderer, ``decouple_rendering: False``), the losses and
-``forward``. The decoupled env pass is not ported yet and raises.
+Ported: both rendering branches (``decouple_rendering: True``, the hard
+env pass of dome and ground composited under the soft blocks pass; and
+``False``, env and blocks as one scene through the soft renderer), the
+losses and ``forward``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..ops.superquadric import implicit_sq, parametric_sq
 from ..ops.uv import icosphere_uv_atlas, pad_u_atlas, spherical_uv_from_points
 from ..render.cameras import Camera
 from ..render.meshes import MeshScene, TextureAtlas, concat_scenes
-from ..render.renderer import make_train_renderer
+from ..render.renderer import make_env_renderer, make_train_renderer
 
 DECIMATE_FACTOR = 8
 OVERLAP_N_POINTS = 1000
@@ -60,6 +61,13 @@ class Phase:
     filter_transparent: bool
     sigma: float
     training: bool
+
+    @staticmethod
+    def eval_phase(filter_transparent=True, sigma=0.0):
+        """The phase of evaluation renders (reference eval: hard filter,
+        no noise, no decimation)."""
+        return Phase(False, False, 0.0, bool(filter_transparent),
+                     float(np.float32(sigma)), False)
 
 
 class SceneStatics(NamedTuple):
@@ -260,17 +268,20 @@ class BlocksWorld:
         fpp = rc.pop("faces_per_pixel", 25)
         rc.pop("sigma", None)
         rc.pop("perspective_correct", None)
-        z_clip = rc.pop("z_clip", 1e-3) or 1e-3
+        shared = dict(
+            shading=rc.pop("shading_type", "raw"),
+            background_color=tuple(rc.pop("background_color", (0.0, 0.0, 0.0))),
+            ambient_color=None if amb == (1.0, 1.0, 1.0) else amb,
+            z_clip=rc.pop("z_clip", 1e-3) or 1e-3,
+        )
         self.renderer = make_train_renderer(
             self.img_size, self.camera, faces_per_pixel=fpp,
             sigma=self.sigma_coarse,
             detach_bary=rc.pop("detach_bary", False),
-            clip_inside=rc.pop("clip_inside", True),
-            shading=rc.pop("shading_type", "raw"),
-            background_color=tuple(rc.pop("background_color", (0.0, 0.0, 0.0))),
-            ambient_color=None if amb == (1.0, 1.0, 1.0) else amb,
-            z_clip=z_clip,
+            clip_inside=rc.pop("clip_inside", True), **shared,
         )
+        self.renderer_env = make_env_renderer(self.img_size, self.camera,
+                                              **shared)
         _no_unknown(rc, "renderer config")
 
     # -- curriculum -------------------------------------------------------
@@ -352,6 +363,13 @@ class BlocksWorld:
         maps, raw = self._env_map(params["texture_ground"], phase)
         return self._env_scene(verts, st.ground_faces, st.ground_uvs, maps), raw
 
+    def build_env(self, params, phase: Phase):
+        """Background dome + ground as one world-coordinate scene (the
+        decoupled env pass, reference dbw.py:214), with their own atlas."""
+        bkg, braw = self.build_bkg(params, phase)
+        ground, graw = self.build_ground(params, phase)
+        return concat_scenes([bkg, ground]), {"bkg": braw, "ground": graw}
+
     def block_sq_eps(self, params):
         e = torch.sigmoid(params["sq_eps"]) * 1.8 + 0.1
         return e[:, 0:1], e[:, 1:2]
@@ -418,14 +436,33 @@ class BlocksWorld:
 
     # -- prediction -------------------------------------------------------
 
-    def predict(self, params, phase: Phase, R, T, noise=None):
-        """Render B views (R (B, 3, 3), T (B, 3)) -> (rec (B, H, W, 3), aux)."""
-        if self.decouple_rendering:
-            raise NotImplementedError("decoupled env pass: not ported yet")
-        scene, aux, env_raws = self.build_scene(params, phase, noise=noise)
-        rgba = self.renderer.render(scene, R, T, sigma=phase.sigma)
+    def env_pass(self, params, phase: Phase, R, T):
+        """Decoupled env pass: dome + ground through the hard env renderer
+        -> (rec_env (B, H, W, 3), env raw maps)."""
+        env, env_raws = self.build_env(params, phase)
+        return self.renderer_env.render(env, R, T)[..., :3], env_raws
+
+    def blocks_pass(self, params, phase: Phase, R, T, env_out, noise=None):
+        """Decoupled blocks pass: the soft blocks render composited over the
+        env pass's output ``env_out`` -> (rec (B, H, W, 3), aux)."""
+        rec_env, env_raws = env_out
+        blocks, aux = self.build_blocks(params, phase, noise=noise)
+        rgba = self.renderer.render(blocks, R, T, sigma=phase.sigma)
+        mask = rgba[..., 3:]
         aux["env_raw_maps"] = env_raws
-        return rgba[..., :3], aux
+        return rgba[..., :3] * mask + (1.0 - mask) * rec_env, aux
+
+    def predict(self, params, phase: Phase, R, T, noise=None):
+        """Render B views (R (B, 3, 3), T (B, 3)) -> (rec (B, H, W, 3), aux).
+        Decoupled: the hard env render shows wherever the soft blocks render
+        leaves coverage (reference dbw.py:202-239)."""
+        if self.decouple_rendering:
+            return self.blocks_pass(params, phase, R, T,
+                                    self.env_pass(params, phase, R, T), noise=noise)
+        scene, aux, env_raws = self.build_scene(params, phase, noise=noise)
+        rec = self.renderer.render(scene, R, T, sigma=phase.sigma)[..., :3]
+        aux["env_raw_maps"] = env_raws
+        return rec, aux
 
     # -- losses -----------------------------------------------------------
 

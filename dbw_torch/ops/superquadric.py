@@ -36,3 +36,21 @@ def implicit_sq(points, eps1=1.0, eps2=1.0, as_sdf=False):
             return r * (1.0 - 1.0 / (safe_pow(res, eps1 / 2.0) + 1e-6))
         return safe_pow(res, eps1 / 2.0) - 1.0
     return res - 1.0
+
+
+def sample_sq(eps1, eps2, scale, n_points, generator=None):
+    """Random (non-uniform) surface samples, drawn from ``generator``. The
+    axis order differs from parametric_sq as in the reference (z = sin eta;
+    src/utils/superquadric.py:50-57). eps1/eps2: (N, 1), scale: (N, 3).
+    Returns (N, n_points, 3)."""
+    n = eps1.shape[0]
+    dev = eps1.device
+    eta = (torch.rand((n, n_points), generator=generator, device=dev)
+           * torch.pi - torch.pi / 2)
+    omega = (torch.rand((n, n_points), generator=generator, device=dev)
+             * 2 * torch.pi - torch.pi)
+    ce, se = signed_pow(torch.cos(eta), eps1), signed_pow(torch.sin(eta), eps1)
+    co, so = signed_pow(torch.cos(omega), eps2), signed_pow(torch.sin(omega), eps2)
+    points = torch.stack([ce * so, ce * co, se], dim=-1)
+    return points * scale[:, None]
+

@@ -49,7 +49,10 @@ def _seg_d2(ax, ay, bx, by, px, py, zero, one):
 
 def _bary2d(x0, y0, x1, y1, x2, y2, px, py):
     area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
-    inv_area = torch.where(area.abs() > 1e-12, 1.0 / area,
+    # the inner where keeps 1/area finite, so a degenerate face's unused
+    # branch gives a zero gradient and not 0 * inf
+    inv_area = torch.where(area.abs() > 1e-12,
+                           1.0 / torch.where(area == 0.0, 1.0, area),
                            torch.zeros_like(area))
     w0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) * inv_area
     w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) * inv_area
@@ -82,37 +85,58 @@ def alpha_math(res, px, py, vld, sigma, clip_inside):
     return a * vld * fa
 
 
-def uv_math(cols, px, py, flags: FragFlags):
-    """Texel id00 (int32) and offsets wx, wy from gathered rows (N, 20)."""
+def _clip(x, lo, hi):
+    """clip as JAX's jnp.clip: maximum then minimum, so autograd splits the
+    cotangent in half at a bound (torch.clamp passes all of it)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def bary_uv(cols, px, py, persp, clip_bary):
+    """Interpolated uv (uv_u, uv_v), each (N,), from gathered face rows
+    (N, 20): perspective-correct, clipped barycentrics of the pixel centers.
+    Differentiable in the xy and z columns (the env pass learns through it)."""
     x0, y0, x1, y1, x2, y2 = (cols[:, i] for i in range(6))
     z0, z1, z2 = cols[:, 6], cols[:, 7], cols[:, 8]
     u0, v0, u1, v1, u2, v2 = (cols[:, 12 + i] for i in range(6))
-    mi = cols[:, 18]
+    zero = torch.zeros((), dtype=cols.dtype, device=cols.device)
     w0, w1, w2 = _bary2d(x0, y0, x1, y1, x2, y2, px, py)
     b0, b1, b2 = w0, w1, w2
-    if flags.persp:
-        iw0 = w0 / torch.clamp(z0, min=1e-8)
-        iw1 = w1 / torch.clamp(z1, min=1e-8)
-        iw2 = w2 / torch.clamp(z2, min=1e-8)
-        denom = torch.clamp(iw0 + iw1 + iw2, min=1e-12)
+    if persp:
+        iw0 = w0 / torch.maximum(z0, zero + 1e-8)
+        iw1 = w1 / torch.maximum(z1, zero + 1e-8)
+        iw2 = w2 / torch.maximum(z2, zero + 1e-8)
+        denom = torch.maximum(iw0 + iw1 + iw2, zero + 1e-12)
         b0, b1, b2 = iw0 / denom, iw1 / denom, iw2 / denom
-    if flags.clip_bary:
-        b0, b1, b2 = (torch.clamp(b, 0.0, 1.0) for b in (b0, b1, b2))
-        bs = torch.clamp(b0 + b1 + b2, min=1e-6)
+    if clip_bary:
+        b0, b1, b2 = (_clip(b, zero, zero + 1.0) for b in (b0, b1, b2))
+        bs = torch.maximum(b0 + b1 + b2, zero + 1e-6)
         b0, b1, b2 = b0 / bs, b1 / bs, b2 / bs
-    uv_u = b0 * u0 + b1 * u1 + b2 * u2
-    uv_v = b0 * v0 + b1 * v1 + b2 * v2
-    TH, TW = flags.TH, flags.TW
-    u = torch.clamp(uv_u, 0.0, 1.0) * (TW - 1)
-    v = (1.0 - torch.clamp(uv_v, 0.0, 1.0)) * (TH - 1)
-    x0f = torch.floor(u)
-    y0f = torch.floor(v)
+    return b0 * u0 + b1 * u1 + b2 * u2, b0 * v0 + b1 * v1 + b2 * v2
+
+
+def texel_coords(uv_u, uv_v, mi, TH, TW):
+    """Bilinear base texel id00 (int32) and offsets (wx, wy) of uv in map mi
+    (align_corners, v = 0 at the bottom row). The floor is piecewise
+    constant: wx, wy keep the gradient of u, v (scale TW - 1, TH - 1)."""
+    zero = torch.zeros((), dtype=uv_u.dtype, device=uv_u.device)
+    u = _clip(uv_u, zero, zero + 1.0) * (TW - 1)
+    v = (1.0 - _clip(uv_v, zero, zero + 1.0)) * (TH - 1)
+    x0f = torch.floor(u).detach()
+    y0f = torch.floor(v).detach()
     id00 = (mi.to(torch.int32) * (TH * TW) + y0f.to(torch.int32) * TW
             + x0f.to(torch.int32))
     return id00, u - x0f, v - y0f
 
 
-def _residual(cols):
+def uv_math(cols, px, py, flags: FragFlags):
+    """Texel id00 (int32) and offsets wx, wy from gathered rows (N, 20)."""
+    uv_u, uv_v = bary_uv(cols, px, py, flags.persp, flags.clip_bary)
+    return texel_coords(uv_u, uv_v, cols[:, 18], flags.TH, flags.TW)
+
+
+def residual(cols):
+    """The alpha math's inputs (N, 8) [x0 y0 x1 y1 x2 y2 fa 0] of gathered
+    face rows (N, 20)."""
     zero = torch.zeros_like(cols[:, :1])
     return torch.cat([cols[:, 0:6], cols[:, 9:10], zero], dim=1)
 
@@ -120,7 +144,7 @@ def _residual(cols):
 def frag_fwd_plain(table, ids, vld, px, py, sigma, flags: FragFlags):
     """Plain K2: (id00, wx, wy, alpha, res) for each fragment."""
     cols = table[ids.long()]
-    res = _residual(cols)
+    res = residual(cols)
     alpha = alpha_math(res, px, py, vld, sigma, flags.clip_inside)
     id00, wx, wy = uv_math(cols, px, py, flags)
     return id00, wx, wy, alpha, res

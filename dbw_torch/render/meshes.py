@@ -55,15 +55,9 @@ def quad_forward(maps_flat, id00, wx, wy, TW):
     """Bilinear sample from the 2x2 texel neighbourhood at base texel id00:
     maps_flat (R, C), id00 (N,) int, wx/wy (N,) -> (N, C). Corners past the
     end of the atlas read zero (they only occur with zero weight)."""
-    R = maps_flat.shape[0]
-    base = id00.long()
     out = 0.0
     for off, w in zip((0, 1, TW, TW + 1), corner_weights(wx, wy)):
-        t = base + off
-        q = maps_flat[t.clamp(max=R - 1)]
-        if off:
-            q = torch.where((t < R)[:, None], q, torch.zeros_like(q))
-        out = out + q * w[:, None]
+        out = out + quad_corner(maps_flat, id00, off) * w[:, None]
     return out
 
 
@@ -85,3 +79,50 @@ def sample_quad(maps_flat, id00, wx, wy, TW):
     """Quad bilinear sample with uv held fixed (the training path);
     d_maps by the texel-gradient kernel (K4)."""
     return _SampleQuad.apply(maps_flat, id00, wx, wy, TW)
+
+
+class _SampleQuadDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, maps_flat, id00, wx, wy, TW, TH):
+        ctx.save_for_backward(maps_flat, id00, wx, wy)
+        ctx.TW, ctx.TH = TW, TH
+        return quad_forward(maps_flat, id00, wx, wy, TW)
+
+    @staticmethod
+    def backward(ctx, g):
+        maps_flat, id00, wx, wy = ctx.saved_tensors
+        TW, TH = ctx.TW, ctx.TH
+        g = g.contiguous()
+        d_maps = quad_maps_grad(id00, wx, wy, g, maps_flat.shape[0], TW)
+        # the four corner texels, regathered (a corner past the atlas end has
+        # weight 0 and reads as zero)
+        q00, q01, q10, q11 = (quad_corner(maps_flat, id00, off)
+                              for off in (0, 1, TW, TW + 1))
+        d_wx = (g * ((q01 - q00) * (1 - wy)[:, None]
+                     + (q11 - q10) * wy[:, None])).sum(-1)
+        d_wy = (g * ((q10 - q00) * (1 - wx)[:, None]
+                     + (q11 - q01) * wx[:, None])).sum(-1)
+        # on the atlas edge (x0 == TW - 1, y0 == TH - 1: uv exactly 1 or 0)
+        # the +1 / +TW neighbours lie outside the map with weight 0, and the
+        # subgradient is 0, not their difference
+        x_edge = (id00 % TW) == TW - 1
+        y_edge = ((id00 // TW) % TH) == TH - 1
+        d_wx = torch.where(x_edge, torch.zeros_like(d_wx), d_wx)
+        d_wy = torch.where(y_edge, torch.zeros_like(d_wy), d_wy)
+        return d_maps, None, d_wx, d_wy, None, None
+
+
+def quad_corner(maps_flat, id00, off):
+    """Texel rows id00 + off (N, C); rows past the atlas end read zero."""
+    R = maps_flat.shape[0]
+    t = id00.long() + off
+    q = maps_flat[t.clamp(max=R - 1)]
+    return torch.where((t < R)[:, None], q, torch.zeros_like(q)) if off else q
+
+
+def sample_quad_diff(maps_flat, id00, wx, wy, TW, TH):
+    """Quad bilinear sample differentiable in the maps and in (wx, wy) (the
+    uv-differentiable env pass): d_maps by the texel-gradient kernel (K4),
+    d_wx, d_wy analytic from the four corner texels."""
+    return _SampleQuadDiff.apply(maps_flat, id00, wx, wy, TW, TH)
+

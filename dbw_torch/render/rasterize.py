@@ -7,7 +7,9 @@ the geometry, so it runs on detached inputs; every differentiable quantity is
 recomputed from the selected face ids in the fragment stage.
 
 ``rasterize`` launches the CUDA kernel (csrc/raster.cu) for CUDA tensors and
-runs ``rasterize_plain`` for CPU tensors.
+runs ``rasterize_plain`` for CPU tensors. ``hard=True`` (blur statically 0,
+the env pass) launches the kernel's specialization without edge-distance
+coverage; its plain twin is ``rasterize_plain`` at blur 0.
 """
 
 from __future__ import annotations
@@ -149,28 +151,32 @@ def rasterize_plain(packed, blur, cfg: RasterConfig):
     return out
 
 
-def rasterize_cuda(packed, blur, cfg: RasterConfig):
-    """K1 kernel launch: packed (B, F, 16) CUDA f32 -> (B, H, W, K) int32."""
+def rasterize_cuda(packed, blur, cfg: RasterConfig, hard=False):
+    """K1 kernel launch: packed (B, F, 16) CUDA f32 -> (B, H, W, K) int32.
+    ``hard`` takes the blur-0 specialization (and needs blur == 0)."""
     B, F, A = packed.shape
     H, W = cfg.image_size
     K = cfg.faces_per_pixel
-    if A != 16 or not 1 <= K <= MAX_K:
-        raise ValueError(f"rasterize_cuda: packed {tuple(packed.shape)}, K={K}")
+    blur = float(blur)
+    if A != 16 or not 1 <= K <= MAX_K or (hard and blur != 0.0):
+        raise ValueError(f"rasterize_cuda: packed {tuple(packed.shape)}, K={K}, "
+                         f"blur={blur}, hard={hard}")
     p = kernels.check(packed, torch.float32, "packed")
     out = torch.empty((B, H, W, K), dtype=torch.int32, device=packed.device)
-    blur = float(blur)
     kernels.launch(
-        "dbw_select", "K1_select", p, B, F, H, W, K, blur,
-        float(max(blur, 0.0)) ** 0.5, float(cfg.z_clip),
-        int(cfg.perspective_correct), int(cfg.clip_barycentric),
+        "dbw_select", "K1_select_hard" if hard else "K1_select", p, B, F, H, W,
+        K, blur, float(max(blur, 0.0)) ** 0.5, float(cfg.z_clip),
+        int(cfg.perspective_correct), int(cfg.clip_barycentric), int(hard),
         out.data_ptr(),
     )
     return out
 
 
-def rasterize(geom: FaceGeom, blur, cfg: RasterConfig):
+def rasterize(geom: FaceGeom, blur, cfg: RasterConfig, hard=False):
     """Top-K face selection for B views: (B, H, W, K) int32 pix_to_face."""
     packed = pack_faces(geom)
     if packed.is_cuda:
-        return rasterize_cuda(packed, blur, cfg)
+        return rasterize_cuda(packed, blur, cfg, hard=hard)
+    if hard and float(blur) != 0.0:
+        raise ValueError(f"rasterize: hard selection needs blur 0, got {blur}")
     return rasterize_plain(packed, blur, cfg)

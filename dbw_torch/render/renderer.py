@@ -1,12 +1,20 @@
-"""Soft training renderer: project -> select (K1) -> fragment stage (K2/K3)
--> quad texture sample (K4 backward) -> layered blend.
+"""Training renderers: project -> select (K1) -> fragment stage -> quad
+texture sample -> layered blend.
 
-PyTorch port of the raw-shading training path of
-dbw_tpu/render/renderer.py (``Renderer.render`` and the fused branch of
+PyTorch port of the raw-shading training paths of
+dbw_tpu/render/renderer.py (``Renderer.render`` and both branches of
 ``_shade_fused_batched``). All views are shaded as one flat fragment stream
 of B * H * W * K fragments, fragment n = ((b * H + row) * W + col) * K + k.
-Lit shading, the env (hard, uv-differentiable) renderer, the viz renderers
-and ``render_faces_flat`` are not ported yet.
+
+- detach_bary=True (the soft blocks pass): the fused fragment stage K2/K3,
+  uv held fixed, texel gradient K4.
+- detach_bary=False (the hard env pass of ``make_env_renderer``): face rows
+  gathered with ``gather_rows_partial`` (backward K5), the fragment math in
+  tensor ops, and a texture sample differentiable in uv
+  (``sample_quad_diff``, K4 + analytic d_wx/d_wy), so that the ground pose
+  learns through the barycentrics, z included.
+
+Lit shading, the viz renderers and ``render_faces_flat`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,10 +25,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.scatter import gather_rows_partial
 from .blend import layered_blend
 from .cameras import Camera, ndc_pixel_centers
-from .fragment import FragFlags, fused_fragment_shade
-from .meshes import MeshScene, sample_quad
+from .fragment import (FragFlags, alpha_math, bary_uv, fused_fragment_shade,
+                       residual, texel_coords)
+from .meshes import MeshScene, sample_quad, sample_quad_diff
 from .rasterize import RasterConfig, project_faces, rasterize
 
 # blur_radius = log(1/1e-4 - 1) * sigma (reference renderer.py:51)
@@ -57,9 +67,6 @@ class Renderer:
         if config.shading != "raw":
             raise NotImplementedError(
                 f"shading_type {config.shading!r}: only 'raw' is ported")
-        if not config.detach_bary:
-            raise NotImplementedError(
-                "detach_bary=False (uv-differentiable shading) is not ported")
         self.config = config
         self.camera = camera
 
@@ -68,12 +75,15 @@ class Renderer:
         return sigma, f32(np.float32(BLUR_RADIUS_FACTOR) * np.float32(sigma))
 
     def render(self, scene: MeshScene, R, T, sigma=None):
-        """R (B, 3, 3), T (B, 3) -> RGBA (B, H, W, 4)."""
+        """R (B, 3, 3), T (B, 3) -> RGBA (B, H, W, 4). With no ``sigma``
+        and a config sigma of 0 (the env renderer) the selection takes its
+        hard specialization, as the JAX package decides it."""
         cfg = self.config
+        hard = sigma is None and float(cfg.sigma) == 0.0
         sigma, blur = self.sigma_blur(sigma)
         geom = project_faces(scene.verts, scene.faces, R, T, self.camera,
                              z_clip=cfg.z_clip)
-        p2f = rasterize(geom, blur, cfg.raster_config())
+        p2f = rasterize(geom, blur, cfg.raster_config(), hard=hard)
         return self.shade(scene, geom, p2f, sigma)
 
     def shade(self, scene: MeshScene, geom, p2f, sigma):
@@ -81,13 +91,28 @@ class Renderer:
         (B, H, W, K)."""
         cfg = self.config
         B, H, W, K = p2f.shape
-        table, ids, vld, px, py = fragment_streams(scene, geom, p2f)
         maps = scene.atlas.maps
         M, TH, TW = maps.shape[:3]
-        flags = FragFlags(True, True, cfg.clip_inside, TH, TW)
-        id00, wx, wy, alpha = fused_fragment_shade(table, ids, vld, px, py,
-                                                   sigma, flags)
-        colors = sample_quad(maps.reshape(M * TH * TW, 3), id00, wx, wy, TW)
+        maps_flat = maps.reshape(M * TH * TW, 3)
+        if cfg.detach_bary:
+            table, ids, vld, px, py = fragment_streams(scene, geom, p2f)
+            flags = FragFlags(True, True, cfg.clip_inside, TH, TW)
+            id00, wx, wy, alpha = fused_fragment_shade(table, ids, vld, px, py,
+                                                       sigma, flags)
+            colors = sample_quad(maps_flat, id00, wx, wy, TW)
+        else:
+            table, ids, vld, px, py = fragment_streams(scene, geom, p2f,
+                                                       detach_z=False)
+            # empty slots read row 0 and scatter nothing back
+            rows = gather_rows_partial(
+                table, torch.where(vld > 0, ids, torch.full_like(ids, -1)), 12)
+            alpha = alpha_math(residual(rows), px, py, vld, sigma,
+                               cfg.clip_inside)
+            rcfg = cfg.raster_config()
+            uv_u, uv_v = bary_uv(rows, px, py, rcfg.perspective_correct,
+                                 rcfg.clip_barycentric)
+            id00, wx, wy = texel_coords(uv_u, uv_v, rows[:, 18], TH, TW)
+            colors = sample_quad_diff(maps_flat, id00, wx, wy, TW, TH)
         if cfg.ambient_color is not None:
             colors = colors * torch.as_tensor(cfg.ambient_color,
                                               device=colors.device)
@@ -95,23 +120,27 @@ class Renderer:
                              alpha.reshape(B, H, W, K), cfg.background_color)
 
 
-def fragment_streams(scene: MeshScene, geom, p2f):
+def fragment_streams(scene: MeshScene, geom, p2f, detach_z=True):
     """The fragment stage's inputs for B views: the (B * F, 20) face table
-    and the per-fragment row ids (int32), validity and pixel NDC centers."""
+    and the per-fragment row ids (int32), validity and pixel NDC centers.
+    The fused stage (K3) gives z no cotangent, so z is detached there;
+    the uv-differentiable stage keeps it (``detach_z=False``)."""
     B, H, W, K = p2f.shape
     F = scene.faces.shape[0]
     N = H * W * K
     dev = p2f.device
-    # one face table per view: gradient-carrying columns (vertex xy, face
-    # alpha) and gradient-free ones (z, uv corners, map index)
+    # one face table per view: gradient-carrying columns (vertex xy, z
+    # unless detached, face alpha) and gradient-free ones (uv corners, map
+    # index)
     stat = torch.cat([
         scene.uv_verts[scene.uv_faces].reshape(F, 6),
         scene.map_idx[:, None].to(torch.float32),
         torch.zeros(F, 1, device=dev),
     ], dim=1).detach()
+    z = geom.z.reshape(B * F, 3)
     table = torch.cat([
         geom.xy.reshape(B * F, 6),
-        geom.z.reshape(B * F, 3).detach(),
+        z.detach() if detach_z else z,
         scene.faces_alpha.repeat(B)[:, None],
         torch.zeros(B * F, 2, device=dev),
         stat.repeat(B, 1),
@@ -136,3 +165,15 @@ def make_train_renderer(image_size, camera, faces_per_pixel=10, sigma=1e-4,
                        detach_bary=detach_bary, **kw),
         camera,
     )
+
+
+def make_env_renderer(image_size, camera, **kw):
+    """Hard one-layer renderer for the background dome and the ground
+    (reference dbw.py:135-138): faces_per_pixel=1, sigma=0,
+    detach_bary=False."""
+    return Renderer(
+        RendererConfig(image_size=tuple(image_size), faces_per_pixel=1,
+                       sigma=0.0, detach_bary=False, **kw),
+        camera,
+    )
+

@@ -1,6 +1,7 @@
 """K1 (per-pixel top-K face selection): the port's plain version against
-the JAX selection (XLA backend, its reference for the TPU kernel), and the
-CUDA kernel against the plain version on a card."""
+the JAX selection (XLA backend, its reference for the TPU kernel), in the
+soft and in the hard (K=1, blur 0, env pass) setting, and the CUDA kernel
+and its hard specialization against the plain version on a card."""
 
 import copy
 
@@ -14,6 +15,7 @@ from dbw_tpu.models.dbw import BlocksWorld as JaxBlocksWorld
 from dbw_tpu.ops.rotations import look_at_rotation as jax_look_at
 from dbw_tpu.render.rasterize import FaceGeom as JaxFaceGeom
 from dbw_tpu.render.rasterize import RasterConfig as JaxRasterConfig
+from dbw_tpu.render.rasterize import _rasterize_xla
 from dbw_tpu.render.rasterize import project_faces as jax_project_faces
 from dbw_tpu.render.rasterize import rasterize as jax_rasterize
 from dbw_torch.render import rasterize as tr
@@ -130,6 +132,61 @@ def test_fewer_faces_than_slots_pads_with_misses():
     jcfg = JaxRasterConfig(image_size=(8, 8), faces_per_pixel=5, z_clip=0.001)
     np.testing.assert_array_equal(
         got[0], np.asarray(jax_rasterize(jg, jnp.float32(0.01), jcfg)))
+
+
+def _env_geoms(B=2, H=24, W=32):
+    """The env scene (dome + ground, 448 faces) of a decoupled model."""
+    cfg = dict(mesh=dict(n_blocks=2, txt_size=16, T_range=[0.5, 0.5, 0.5]),
+               renderer=dict(faces_per_pixel=4, detach_bary=True, z_clip=0.001),
+               rend_optim=dict(decouple_rendering=True))
+    jm = JaxBlocksWorld((H, W), backend="xla", **copy.deepcopy(cfg))
+    jm.set_camera(K_NDC)
+    env, _ = jm.build_env(jm.init_params(seed=0), jm.phase_for_epoch(0))
+    R, T = jax_look_at(3.0, 25.0, jnp.linspace(-40.0, 40.0, B))
+    return [jax_project_faces(env.verts, env.faces, R[b], T[b], jm.camera,
+                              z_clip=0.001) for b in range(B)]
+
+
+def _tied_soup(seed, H=20, W=28):
+    """A triangle soup whose second half repeats the first: every covered
+    pixel sees depth ties, which go to the lower face index."""
+    g = _soup(seed, F=30, H=H, W=W)
+    return JaxFaceGeom(*(jnp.concatenate([a, a]) for a in g))
+
+
+@pytest.mark.parametrize("scene", ["env", "tied_soup"])
+def test_hard_selection_matches_jax(scene):
+    """Hard K=1 selection at blur 0 (the env pass) against the JAX XLA
+    selection at blur 0."""
+    H, W = (24, 32) if scene == "env" else (20, 28)
+    jgeoms = _env_geoms(H=H, W=W) if scene == "env" else [_tied_soup(7, H, W)]
+    jcfg = JaxRasterConfig(image_size=(H, W), faces_per_pixel=1, z_clip=0.001)
+    ref = np.stack([np.asarray(_rasterize_xla(g, jnp.float32(0.0), jcfg))
+                    for g in jgeoms])
+    cfg = tr.RasterConfig(image_size=(H, W), faces_per_pixel=1, z_clip=0.001)
+    geom = _to_torch_geom(jgeoms)
+    got = tr.rasterize(geom, 0.0, cfg, hard=True).numpy()
+    assert (got[..., 0] >= 0).mean() > (0.99 if scene == "env" else 0.3)
+    _check_selection(got, ref, tr.pack_faces(geom), 0.0, cfg)
+    if scene == "tied_soup":
+        np.testing.assert_array_equal(got, ref)
+        assert got.max() < 30        # the repeated faces never win a tie
+    with pytest.raises(ValueError):
+        tr.rasterize(geom, 1e-3, cfg, hard=True)
+
+
+@pytest.mark.cuda
+def test_cuda_hard_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for jgeoms, (H, W) in ((_env_geoms(B=3, H=60, W=80), (60, 80)),
+                           ([_tied_soup(8, 40, 56)], (40, 56))):
+        geom = _to_torch_geom(jgeoms)
+        packed = tr.pack_faces(geom)
+        cfg = tr.RasterConfig(image_size=(H, W), faces_per_pixel=1, z_clip=0.001)
+        ref = tr.rasterize_plain(packed, 0.0, cfg).numpy()
+        got = tr.rasterize_cuda(packed.cuda(), 0.0, cfg, hard=True).cpu().numpy()
+        _check_selection(got, ref, packed, 0.0, cfg)
 
 
 @pytest.mark.cuda

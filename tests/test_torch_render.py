@@ -1,6 +1,6 @@
-"""Scene building and the soft training render of the PyTorch port against
-the JAX package (joint scene: dome + ground + blocks), over the curriculum
-phases."""
+"""Scene building, the soft training render (joint scene: dome + ground +
+blocks) and the hard env render (dome + ground, uv-differentiable) of the
+PyTorch port against the JAX package, over the curriculum phases."""
 
 import copy
 
@@ -13,8 +13,10 @@ import torch
 
 from dbw_tpu.models.dbw import BlocksWorld as JaxBlocksWorld
 from dbw_tpu.ops.rotations import look_at_rotation as jax_look_at
+from dbw_tpu.render.meshes import TextureAtlas as JaxTextureAtlas
 from dbw_torch.models.dbw import BlocksWorld
-from dbw_torch.render.renderer import make_train_renderer
+from dbw_torch.render.meshes import TextureAtlas
+from dbw_torch.render.renderer import make_env_renderer, make_train_renderer
 
 H, W, B = 24, 32, 2
 CFG = dict(
@@ -95,18 +97,57 @@ def test_soft_render_matches_jax(models, epoch):
     assert (ref[..., 3] > 0.99).mean() > 0.9
 
 
+@pytest.mark.parametrize("epoch", [0, 1600])
+def test_env_render_and_grads_match_jax(models, epoch):
+    """The hard env render of dome + ground (K=1, sigma 0, detach_bary off)
+    and its gradients with respect to the vertices (x, y and z: the depth
+    enters the perspective-correct barycentrics) and the texture maps.
+    Gradient tolerance: 1e-4 of each leaf's max (the JAX texel gradient
+    quantizes the bilinear weights to 1/32767)."""
+    jm, tm = models
+    jenv, _ = jm.build_env(jm.init_params(2), jm.phase_for_epoch(epoch))
+    tenv, _ = tm.build_env(tm.init_params(2), tm.phase_for_epoch(epoch))
+    R, T = jax_look_at(3.0, 25.0, jnp.linspace(-40.0, 40.0, B))
+    w = np.random.default_rng(epoch).random((B, H, W, 4), np.float32)
+
+    def jf(verts, maps):
+        scene = jenv._replace(verts=verts, atlas=JaxTextureAtlas(maps))
+        img = jm.renderer_env.render(scene, R, T)
+        return jnp.sum(img * w), img
+
+    (_, ref), (jgv, jgm) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(
+        jenv.verts, jenv.atlas.maps)
+    verts = tenv.verts.detach().clone().requires_grad_(True)
+    maps = tenv.atlas.maps.detach().clone().requires_grad_(True)
+    img = tm.renderer_env.render(tenv._replace(verts=verts, atlas=TextureAtlas(maps)),
+                                 torch.tensor(np.asarray(R)), torch.tensor(np.asarray(T)))
+    np.testing.assert_allclose(img.detach().numpy(), np.asarray(ref), atol=2e-5)
+    assert (np.asarray(ref)[..., 3] == 1.0).mean() > 0.99   # the dome covers all
+    (img * torch.from_numpy(w)).sum().backward()
+    for got, want in ((verts.grad, jgv), (maps.grad, jgm)):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * scale)
+    # the ground's vertices get a gradient along world z too
+    nb = jm.statics.bkg_verts.shape[0]
+    assert np.abs(np.asarray(jgv)[nb:, 2]).max() > 0
+
+
+def test_env_renderer_config(models):
+    _, tm = models
+    cfg = make_env_renderer((H, W), tm.camera).config
+    assert (cfg.faces_per_pixel, cfg.sigma, cfg.detach_bary) == (1, 0.0, False)
+
+
 def test_unported_paths_raise(models):
     jm, tm = models
-    cfg = copy.deepcopy(CFG)
-    cfg["rend_optim"]["decouple_rendering"] = True
-    m = BlocksWorld((H, W), **cfg)
-    m.set_camera(K_NDC)
-    R = torch.eye(3)[None]
-    with pytest.raises(NotImplementedError):
-        m.predict(m.init_params(0), m.phase_for_epoch(0), R, torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError):
-        make_train_renderer((H, W), tm.camera, detach_bary=False)
     with pytest.raises(NotImplementedError):
         make_train_renderer((H, W), tm.camera, shading="flat")
     with pytest.raises(ValueError):
         BlocksWorld((H, W), mesh=dict(n_blocks=2, bogus=1))
+    cfg = copy.deepcopy(CFG)
+    cfg["renderer"]["cameras"] = dict(name="orthographic")
+    m = BlocksWorld((H, W), **cfg)
+    with pytest.raises(NotImplementedError):
+        m.set_camera(K_NDC)

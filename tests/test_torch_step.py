@@ -1,12 +1,14 @@
 """The whole slice: one train step (forward, gradient, Adam with the
-texture group) of the joint-rendering model (decouple_rendering=False) with
-the full loss stack and a random VGG, in the PyTorch port against the JAX
-package from the same init. The JAX opacity-noise and overlap-point draws
-are injected into the port.
+texture group) with the full loss stack and a random VGG, in the PyTorch
+port against the JAX package from the same init, for the joint-rendering
+model (decouple_rendering=False) and for the decoupled one (hard env pass
+under the soft blocks pass, the shipped configs' setting). The JAX
+opacity-noise and overlap-point draws are injected into the port.
 
-Tolerances: per-loss-term rtol 1e-4; per-leaf gradient max |diff| <= 1e-3
-of that leaf's max |g|; parameters after 3 Adam steps atol 3e-4 (the JAX
-package's own float floor for 3 steps, tests/test_spatial.py)."""
+Tolerances: per-loss-term rtol 1e-4 (joint) and 2e-5 (decoupled); per-leaf
+gradient max |diff| <= 1e-3 of that leaf's max |g|; parameters after 3 Adam
+steps atol 3e-4 (the JAX package's own float floor for 3 steps,
+tests/test_spatial.py)."""
 
 import copy
 
@@ -25,6 +27,7 @@ from dbw_torch.models.dbw import BlocksWorld
 from dbw_torch.train.optimizer import create_optimizer
 
 LOSS_RTOL = 1e-4
+DEC_LOSS_RTOL = 2e-5
 GRAD_REL = 1e-3
 PARAM_ATOL = 3e-4
 # In the fine phase (sigma 5e-6) the ground pose's gradient is a small sum
@@ -47,6 +50,8 @@ CFG = dict(
     loss=dict(rgb_weight=1, perceptual_weight=0.1, parsimony_weight=0.01,
               tv_weight=0.1, overlap_weight=1),
 )
+DEC_CFG = copy.deepcopy(CFG)
+DEC_CFG["rend_optim"]["decouple_rendering"] = True
 TRAIN_CFG = {"training": {"optimizer": {"name": "adam", "lr": 5e-3,
                                         "texture": {"lr": 5e-2}}}}
 K_NDC = np.zeros((4, 4), np.float32)
@@ -63,11 +68,11 @@ def _draws(model, key):
     return torch.tensor(noise), torch.tensor(ou)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jm = JaxBlocksWorld((H, W), backend="xla", **copy.deepcopy(CFG))
+def _run(cfg):
+    """3 coarse Adam steps and one fine-phase step in both packages."""
+    jm = JaxBlocksWorld((H, W), backend="xla", **copy.deepcopy(cfg))
     jm.set_camera(K_NDC)
-    tm = BlocksWorld((H, W), **copy.deepcopy(CFG))
+    tm = BlocksWorld((H, W), **copy.deepcopy(cfg))
     tm.set_camera(K_NDC)
     R, T = jax_look_at(3.0, 25.0, jnp.linspace(-40.0, 40.0, B))
     imgs = np.random.default_rng(0).random((B, H, W, 3), np.float32)
@@ -123,10 +128,20 @@ def runs():
     return out
 
 
-def _check_losses(jl, tl):
+@pytest.fixture(scope="module")
+def runs():
+    return _run(CFG)
+
+
+@pytest.fixture(scope="module")
+def runs_decoupled():
+    return _run(DEC_CFG)
+
+
+def _check_losses(jl, tl, rtol=LOSS_RTOL):
     assert set(jl) == set(tl)
     for k in jl:
-        np.testing.assert_allclose(tl[k], jl[k], rtol=LOSS_RTOL, err_msg=k)
+        np.testing.assert_allclose(tl[k], jl[k], rtol=rtol, err_msg=k)
 
 
 def _check_grads(jg, tg, rel=None):
@@ -174,6 +189,89 @@ def test_fine_phase_step_matches(runs):
     # hard alpha: no parsimony/overlap gradient, opacities get none at all
     assert jl["parsimony"] == 0 and jl["overlap"] == 0
     assert np.abs(tg["alpha_logit"]).max() == 0
+
+
+@pytest.mark.parametrize("step", range(N_ADAM))
+def test_decoupled_coarse_step_losses_match(runs_decoupled, step):
+    jl, _, tl, _ = runs_decoupled["coarse"][step]
+    _check_losses(jl, tl, rtol=DEC_LOSS_RTOL)
+    assert set(jl) == {"rgb", "perceptual", "parsimony", "tv", "overlap", "total"}
+
+
+@pytest.mark.parametrize("step", range(N_ADAM))
+def test_decoupled_coarse_step_grads_match(runs_decoupled, step):
+    _, jg, _, tg = runs_decoupled["coarse"][step]
+    _check_grads(jg, tg)
+    # the ground pose learns through the env pass
+    assert np.abs(jg["T_ground"]).max() > 0 and np.abs(jg["R_6d_ground"]).max() > 0
+
+
+def test_decoupled_params_after_adam_steps_match(runs_decoupled):
+    jp, tp = runs_decoupled["params"]
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], atol=PARAM_ATOL, err_msg=k)
+
+
+def test_decoupled_fine_phase_step_matches(runs_decoupled):
+    jl, jg, tl, tg = runs_decoupled["fine"]
+    _check_losses(jl, tl, rtol=DEC_LOSS_RTOL)
+    _check_grads(jg, tg)
+    assert np.abs(tg["alpha_logit"]).max() == 0
+
+
+def _route_to_plain_twins(monkeypatch):
+    """Send every kernel's dispatcher to its plain twin, CUDA tensors too."""
+    from dbw_torch.ops import scatter, texel_grad
+    from dbw_torch.render import fragment, meshes, rasterize, renderer
+
+    def rasterize_plain(geom, blur, cfg, hard=False):
+        return rasterize.rasterize_plain(rasterize.pack_faces(geom), blur, cfg)
+
+    monkeypatch.setattr(renderer, "rasterize", rasterize_plain)
+    monkeypatch.setattr(fragment, "frag_fwd", fragment.frag_fwd_plain)
+    monkeypatch.setattr(fragment, "frag_bwd", fragment.frag_bwd_plain)
+    monkeypatch.setattr(meshes, "quad_maps_grad", texel_grad.quad_maps_grad_plain)
+    monkeypatch.setattr(scatter, "small_table_scatter_add",
+                        scatter.small_table_scatter_add_plain)
+
+
+@pytest.mark.cuda
+def test_card_gap_to_the_cpu_is_not_the_kernels(monkeypatch):
+    """chip_smoke's small decoupled reference model on the card: with every
+    kernel swapped for its plain twin (no launch), the losses stay within
+    rtol 1e-5 and the gradients within 1e-4 of each leaf's max of the
+    kernels' run, so the card's gap to the CPU (up to 1e-3) is torch's own
+    CUDA-vs-CPU arithmetic, not a kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from dbw_torch import kernels
+
+    # fp32 convolutions and matmuls, as chip_smoke.py runs them
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.load_cfg()
+    cpu = chip_smoke.reference_step(cfg, "cpu", True)
+    kernels.reset_launches()
+    card = chip_smoke.reference_step(cfg, "cuda", True)
+    assert all(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    _route_to_plain_twins(monkeypatch)
+    kernels.reset_launches()
+    plain = chip_smoke.reference_step(cfg, "cuda", True)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+    gaps = {name: chip_smoke.grad_gap(a[1], b[1]) for name, a, b in (
+        ("kernels vs plain twins, card", card, plain),
+        ("kernels on the card vs CPU", card, cpu),
+        ("plain twins on the card vs CPU", plain, cpu))}
+    for name, g in gaps.items():
+        leaf = max(g, key=g.get)
+        print(f"{name}: grads max |d|/max|g| {g[leaf]:.3g} at {leaf}")
+    for k in card[0]:
+        np.testing.assert_allclose(plain[0][k], card[0][k], rtol=1e-5, err_msg=k)
+    assert max(gaps["kernels vs plain twins, card"].values()) <= 1e-4
+    assert max(gaps["kernels on the card vs CPU"].values()) <= 1e-3
+    assert max(gaps["plain twins on the card vs CPU"].values()) <= 1e-3
 
 
 def test_convert_round_trip():

@@ -1,7 +1,9 @@
 """K4 (texture-atlas gradient of the quad bilinear sample): the port's plain
 version against ``jax.grad`` through the JAX ``_sample_quad`` in ``quad``
 texel mode (its CPU reference), and the CUDA kernel against the plain
-version on a card."""
+version on a card. Also the uv-differentiable sample of the env pass
+(``sample_quad_diff`` after ``texel_coords``) against the JAX
+``sample_atlas_bilinear(..., diff_uv=True)``."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 from dbw_tpu.render import meshes as jmeshes
 from dbw_torch.ops import texel_grad as tg
 from dbw_torch.render import meshes as tmeshes
+from dbw_torch.render.fragment import texel_coords
 
 # the JAX side quantizes wx/wy to 1/32767 (segment_sum_pallas.pack_wxy), so
 # gradients agree to rtol 1e-4 (atol 1e-4 of the largest entry for texels
@@ -71,6 +74,50 @@ def test_plain_texel_grad_matches_jax(seed, shape):
     w = torch.from_numpy(wx).requires_grad_(True)
     tmeshes.sample_quad(m, torch.from_numpy(id00), w, torch.from_numpy(wy), TW).sum().backward()
     assert w.grad is None
+
+
+@pytest.mark.parametrize("seed,shape", [(6, (2, 12, 20)), (7, (1, 8, 8))])
+def test_sample_quad_diff_matches_jax(seed, shape):
+    """Forward, d_maps (rtol 1e-4: the JAX side quantizes wx/wy in its texel
+    gradient) and d_uv, with uv exactly on the atlas edges (0 and 1, where
+    the clip splits its gradient and the edge subgradient is 0) and past
+    them (clipped: no gradient)."""
+    M, TH, TW = shape
+    rng = np.random.default_rng(seed)
+    N = 3000
+    maps = rng.random((M, TH, TW, 3)).astype(np.float32)
+    uv = rng.random((N, 2)).astype(np.float32)
+    uv[:40] = [[1.0, 0.0]]
+    uv[40:80] = [[0.0, 1.0]]
+    uv[80:120, 0] = 1.0
+    uv[120:160, 1] = 0.0
+    uv[160:200] = rng.uniform(-0.3, 1.3, (40, 2))
+    mi = rng.integers(0, M, N).astype(np.int32)
+    g = rng.standard_normal((N, 3)).astype(np.float32)
+
+    def jf(m, u):
+        return jnp.sum(jmeshes.sample_atlas_bilinear(m, jnp.asarray(mi), u,
+                                                     diff_uv=True) * g)
+
+    ref = np.asarray(jmeshes.sample_atlas_bilinear(
+        jnp.asarray(maps), jnp.asarray(mi), jnp.asarray(uv), diff_uv=True))
+    d_maps_ref, d_uv_ref = (np.asarray(a) for a in jax.grad(jf, argnums=(0, 1))(
+        jnp.asarray(maps), jnp.asarray(uv)))
+
+    m = torch.from_numpy(maps).requires_grad_(True)
+    u = torch.from_numpy(uv).requires_grad_(True)
+    id00, wx, wy = texel_coords(u[:, 0], u[:, 1], torch.from_numpy(mi), TH, TW)
+    out = tmeshes.sample_quad_diff(m.reshape(-1, 3), id00, wx, wy, TW, TH)
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-6, atol=1e-6)
+    out.backward(torch.from_numpy(g))
+    scale = np.abs(d_maps_ref).max()
+    np.testing.assert_allclose(m.grad.numpy(), d_maps_ref, rtol=GRAD_RTOL,
+                               atol=GRAD_RTOL * scale)
+    np.testing.assert_allclose(u.grad.numpy(), d_uv_ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(d_uv_ref).max())
+    # the edge rows are exercised: u == 1 gives d_u == 0, u == 0 half a slope
+    assert (u.grad.numpy()[:40, 0] == 0).all()
+    assert np.abs(d_uv_ref[40:80, 0]).max() > 0
 
 
 @pytest.mark.cuda
