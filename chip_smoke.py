@@ -9,10 +9,12 @@ Phases, one line each (or a few):
    ptxas register and spill info);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes of every path that launches it (the blocks and env
-   passes of the main path, the joint path's one scene), with both times,
-   the kernel's bound (the larger of its bytes over the card's memory rate
-   and its operations over the float32 rate) and, for K4 and K5, the time
-   of one PyTorch ``index_add_`` that computes the same sums;
+   passes of the main path, the joint path's one scene, K3 also at the
+   band path's), with both times (CUDA events around runs of 20 calls),
+   K3's and K5's device time per launch from a profiler trace, the
+   kernel's bound (the larger of its bytes over the card's memory rate and
+   its operations over the float32 rate) and, for K4 and K5, the time of
+   one PyTorch ``index_add_`` that computes the same sums;
 4. main path: configs/synthetic/dtu_shaped.yml as shipped (decoupled env
    pass, 300x400, 4 views, K=10, 10 blocks, 256 texels) takes 10 Adam
    steps; every kernel must launch in every step. Then a few steps split by
@@ -100,25 +102,63 @@ FP32_FLOPS_PER_S = 67e12
 # per pixel-face pair is rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
 FLOPS_PER_ITEM = {"K2_frag_fwd": 140, "K3_frag_bwd": 260, "K4_texel_grad": 32,
                   "K5_small_scatter": 12}
+# kernels whose device time per launch phase 3 also reads from a profiler
+# trace, by the name of their device kernel
+DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel"}
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps=10):
-    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
+def cuda_ms(fn, runs=20, pairs=5):
+    """Time of one fn() call: a CUDA-event pair around ``runs`` back-to-back
+    calls, over ``runs``; the median of ``pairs`` such pairs (after one
+    warm-up call)."""
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(pairs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(runs):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / runs)
     return float(np.median(times))
+
+
+def device_ms(fn, kernel, runs=20, tries=3):
+    """The device time of one launch of the device kernel whose name holds
+    ``kernel``, as torch.profiler (CUPTI) records it over ``runs`` calls of
+    fn(): the summed kernel durations over their count (after one warm-up
+    call). Host work inside fn() is not in it. CUPTI may hand a short trace
+    no device records (it drops those it cannot place inside the trace's
+    window), so the calls sit between idle gaps of 10 ms and a trace without
+    a launch is taken again, up to ``tries`` times; after that the time is
+    None ("not measured"): it is a reading, not a check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if spans:
+            if i:
+                say("kernels", f"device time of {kernel}: read in profiler trace "
+                    f"{i + 1} of {tries}")
+            return float(sum(spans)) / len(spans) / 1e3
+    say("kernels", f"device time of {kernel}: not measured (none of {tries} profiler "
+        "traces held a launch of it)")
+    return None
 
 
 def load_cfg():
@@ -221,10 +261,14 @@ def k1_bound(packed, out, blur, rcfg, row_range=None):
 
 
 def record(checks, name, path, err, ok, fn, plain_fn, work, library_fn=None):
+    """One check of kernel ``name`` at ``path``: its error, the times of the
+    kernel's wrapper, its plain twin and its library call, and, for the
+    kernels of DEVICE_KERNELS, the profiler's device time of one launch."""
     checks.setdefault(name, []).append(dict(
         path=path, max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn),
-        library_ms=None if library_fn is None else cuda_ms(library_fn), **work,
-        ok=ok))
+        library_ms=None if library_fn is None else cuda_ms(library_fn),
+        device_ms=device_ms(fn, DEVICE_KERNELS[name]) if name in DEVICE_KERNELS else None,
+        **work, ok=ok))
 
 
 def index_add_call(idx, vals, n_rows):
@@ -280,7 +324,7 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen):
     id_eq = float((out[0] == refo[0]).float().mean())
     err2 = max(float((a - b).abs().max()) for a, b in zip(out[1:], refo[1:]))
     say("kernels", f"K2 frag fwd [{path}, N={ids.numel()}]: id00 equal on {id_eq:.6f}, "
-        f"max |d| of wx/wy/alpha/res {err2:.3g} (tolerance: id00 exact, 1e-5)")
+        f"max |d| of wx/wy/alpha {err2:.3g} (tolerance: id00 exact, 1e-5)")
     N = ids.numel()
     record(checks, "K2_frag_fwd", path, err2, id_eq == 1.0 and err2 <= 1e-5,
            lambda: fr.frag_fwd_cuda(table, ids, vld, px, py, sigma, flags),
@@ -288,23 +332,51 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen):
            bound(nbytes(table, ids, vld, px, py, *out), N * FLOPS_PER_ITEM["K2_frag_fwd"],
                  items=N))
 
-    # K3
-    res = out[4]
-    d_alpha = torch.randn(ids.shape, generator=gen, device=ids.device) * vld
-    rows = table.shape[0]
-    args3 = (ids, vld, px, py, res, d_alpha, sigma, flags.clip_inside, rows)
-    got3 = fr.frag_bwd_cuda(*args3)
-    err3, ok3 = check_close(f"K3 frag bwd [{path}, N={ids.numel()}]: d-table",
-                            got3, fr.frag_bwd_plain(*args3), 1e-4)
-    record(checks, "K3_frag_bwd", path, err3, ok3,
-           lambda: fr.frag_bwd_cuda(*args3), lambda: fr.frag_bwd_plain(*args3),
-           bound(nbytes(ids, vld, px, py, res, d_alpha, got3),
-                 N * FLOPS_PER_ITEM["K3_frag_bwd"], items=N))
+    check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags,
+                   rcfg.faces_per_pixel, gen)
 
     # K4, in the pass's (P, K) fragment layout
     g = torch.randn((ids.numel(), 3), generator=gen, device=ids.device) * vld[:, None]
     check_texel_grad(checks, path, out[0], out[1], out[2], g, M * TH * TW, TW,
                      rcfg.faces_per_pixel)
+
+
+def check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags, K, gen):
+    """K3 against its plain twin on one pass's fragment streams (N = P * K
+    fragments in the layout n = pixel * K + slot), with a seeded cotangent
+    of alpha on the valid fragments."""
+    from dbw_torch.render import fragment as fr
+
+    d_alpha = torch.randn(ids.shape, generator=gen, device=ids.device) * vld
+    args3 = (table, ids, vld, px, py, d_alpha, sigma, flags.clip_inside, K)
+    got3 = fr.frag_bwd_cuda(*args3)
+    err3, ok3 = check_close(f"K3 frag bwd [{path}, N={ids.numel()}, K={K}]: d-table",
+                            got3, fr.frag_bwd_plain(*args3), 1e-4)
+    N = ids.numel()
+    record(checks, "K3_frag_bwd", path, err3, ok3,
+           lambda: fr.frag_bwd_cuda(*args3), lambda: fr.frag_bwd_plain(*args3),
+           bound(nbytes(table, ids, vld, px, py, d_alpha, got3),
+                 N * FLOPS_PER_ITEM["K3_frag_bwd"], items=N))
+
+
+def check_band_frag_bwd(checks, model, scene, phase, R, T, gen):
+    """K3 at the band path's shapes: the blocks pass of the middle band of
+    3, whose backward the band phase runs."""
+    from dbw_torch.render import fragment as fr
+    from dbw_torch.render import rasterize as rz
+    from dbw_torch.render.renderer import fragment_streams
+
+    rend = model.renderer
+    sigma, blur = rend.sigma_blur(phase.sigma)
+    geom = rz.project_faces(scene.verts, scene.faces, R, T, rend.camera,
+                            z_clip=rend.config.z_clip)
+    rcfg = rend.config.raster_config()
+    band = BAND_SPLITS["3 bands"][1]
+    p2f = rz.rasterize_cuda(rz.pack_faces(geom), blur, rcfg, row_range=band)
+    streams = fragment_streams(scene, geom, p2f, image_size=rcfg.image_size, row0=band[0])
+    M, TH, TW = scene.atlas.maps.shape[:3]
+    flags = fr.FragFlags(True, True, rend.config.clip_inside, TH, TW)
+    check_frag_bwd(checks, "band", *streams, sigma, flags, rcfg.faces_per_pixel, gen)
 
 
 def check_texel_grad(checks, path, id00, wx, wy, g, R, TW, K):
@@ -364,24 +436,27 @@ def check_env_pass(checks, model, params, phase, R, T, gen):
     check_texel_grad(checks, path, id00, wx, wy, g, M * TH * TW, TW, 1)
 
     # K5: a seeded cotangent of the (N, 20) gathered rows, its first 12
-    # columns as the gather's backward passes them. A dome face sums up to
-    # ~80,000 fragments, so the float32 rounding of both versions scales
-    # with the summed |upd| of an entry, not with its sum: the tolerance is
-    # 1e-6 of that, and a float64 sum shows each version's own error.
+    # columns added into the first 12 of a zeroed (F, 20) gradient, as the
+    # gather's backward passes them. A dome face sums up to ~80,000
+    # fragments, so the float32 rounding of both versions scales with the
+    # summed |upd| of an entry, not with its sum: the tolerance is 1e-6 of
+    # that, and a float64 sum shows each version's own error.
     n_rows = etable.shape[0]
     upd = torch.randn((N, etable.shape[1]), generator=gen, device=eidx.device)[:, :12]
-    got5 = sc.small_table_scatter_add_cuda(eidx, upd, n_rows)
+    d_table = torch.zeros(etable.shape, device=eidx.device)
+    got5 = sc.small_table_scatter_add_cuda(eidx, upd, n_rows, out=d_table)
     ref5 = sc.small_table_scatter_add_plain(eidx, upd, n_rows)
     exact = sc.small_table_scatter_add_plain(eidx, upd.double(), n_rows)
     abs_sum = float(sc.small_table_scatter_add_plain(eidx, upd.abs(), n_rows).max())
     err5 = float((got5 - ref5).abs().max())
-    ok5 = err5 <= 1e-6 * abs_sum
+    ok5 = err5 <= 1e-6 * abs_sum and not d_table[:, 12:].any()
     say("kernels", f"K5 small scatter [{path}, N={N} (valid {int((eidx >= 0).sum())}), "
         f"table ({n_rows}, 12)]: max |d| {err5:.3g} (tolerance: 1e-6 of the largest "
         f"summed |upd|, {abs_sum:.4g}); to the float64 sum: kernel "
         f"{float((got5.double() - exact).abs().max()):.3g}, plain "
         f"{float((ref5.double() - exact).abs().max()):.3g}; max |sum| "
-        f"{float(ref5.abs().max()):.3g}")
+        f"{float(ref5.abs().max()):.3g}; columns 12-19 of the (F, 20) gradient "
+        f"zero {not d_table[:, 12:].any()}")
     keep = eidx >= 0
     record(checks, "K5_small_scatter", path, err5, ok5,
            lambda: sc.small_table_scatter_add_cuda(eidx, upd, n_rows),
@@ -407,19 +482,23 @@ def phase_kernels(model, device):
         check_env_pass(checks, model, params, phase, R, T, gen)
         joint, _, _ = model.build_scene(params, phase, noise=noise)
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
+        check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
     for name, cs in checks.items():
         for c in cs:
             lib = "" if c["library_ms"] is None else f", index_add_ {c['library_ms']:.4f} ms"
+            dev = "" if name not in DEVICE_KERNELS else (
+                "; device time of one launch not measured" if c["device_ms"] is None
+                else f"; device time of one launch {c['device_ms']:.4f} ms (profiler)")
             say("kernels", f"{name} [{c['path']}]: kernel {c['ms']:.4f} ms, plain "
-                f"{c['plain_ms']:.4f} ms{lib} (CUDA events, median); bound "
-                f"{c['bound_ms']:.4f} ms by {c['bound_by']} {c['bound_counts']}, "
-                f"{c['bound_ms'] / c['ms']:.3f} of it")
+                f"{c['plain_ms']:.4f} ms{lib} (CUDA events around 20 calls, median of "
+                f"5){dev}; bound {c['bound_ms']:.4f} ms by {c['bound_by']} "
+                f"{c['bound_counts']}, {c['bound_ms'] / c['ms']:.3f} of it")
     bad = [f"{n} [{c['path']}]" for n, cs in checks.items() for c in cs if not c.pop("ok")]
     if bad:
         raise SystemExit(f"kernel check failed: {bad}")
     return {n: dict(max_abs_err=max(c["max_abs_err"] for c in cs),
                     **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "bound_counts", "library_ms")},
+                                             "bound_counts", "library_ms", "device_ms")},
                     checks=cs) for n, cs in checks.items()}
 
 
@@ -527,17 +606,25 @@ def profile_steps(model, params, opt, device):
 
     step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(N_PROFILE_STEPS):
-            step()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / N_PROFILE_STEPS
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    if not dev:
-        raise SystemExit("profile: the trace holds no device time")
+    for i in range(2):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(N_PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / N_PROFILE_STEPS
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            if i:
+                say("profile", "device records read in profiler trace 2 of 2")
+            break
+    else:
+        # a reading, not a check: see device_ms
+        say("profile", "idle share and device time: not measured (neither of 2 "
+            "profiler traces held device records)")
+        return
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -625,8 +712,8 @@ def check_band_selection(label, packed, blur, rcfg, hard):
         return rz.rasterize_cuda(packed, blur, rcfg, hard=hard, row_range=mid)
 
     work = k1_bound(packed, band_fn(), blur, rcfg, row_range=mid)
-    say("band", f"{label}: band {mid} kernel {cuda_ms(band_fn):.4f} ms (CUDA events, "
-        f"median), bound {work['bound_ms']:.4f} ms by {work['bound_by']} "
+    say("band", f"{label}: band {mid} kernel {cuda_ms(band_fn):.4f} ms (CUDA events "
+        f"around 20 calls, median of 5), bound {work['bound_ms']:.4f} ms by {work['bound_by']} "
         f"{work['bound_counts']}")
     ok = True
     for split, bands in BAND_SPLITS.items():
@@ -970,6 +1057,7 @@ def main():
     joint = phase_joint(cfg, device)
     per_step["joint"] = {n: joint[n] / N_JOINT_STEPS for n in SOURCES}
     band = phase_band(cfg, device)
+    per_step["band"] = band
     phase_train(cfg, device)
     phase_reference(cfg, device)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -40,10 +40,10 @@ _SIGNATURES = {
     "dbw_select": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
                    _P, _P],
     "dbw_frag_fwd": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P],
-    "dbw_frag_bwd": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P],
+                     _P, _P, _P, _P, _P],
+    "dbw_frag_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
     "dbw_texel_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "dbw_small_scatter": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "dbw_small_scatter": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
 }
 
 _LIB = None

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
+
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
         512, 512, 512]
 _SLICE_END_CONV = [2, 4, 7, 10, 13]  # relu1_2 relu2_2 relu3_3 relu4_3 relu5_3
@@ -29,11 +31,13 @@ _LPIPS_SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 
 
 class VGG16Features(torch.nn.Module):
-    """Frozen VGG16 feature extractor."""
+    """Frozen VGG16 feature extractor, on the card unless ``device`` says
+    otherwise."""
 
     def __init__(self, weights: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         self.pretrained = weights is not None
         if weights is None:
             weights = self.random_weights(seed)
@@ -80,7 +84,7 @@ class VGG16Features(torch.nn.Module):
         return [(d[f"w{i}"], d[f"b{i}"]) for i in range(n)]
 
     @classmethod
-    def from_env_or_random(cls, seed=0, path=None, device=None):
+    def from_env_or_random(cls, seed=0, path=None, device=DEFAULT_DEVICE):
         path = path or os.environ.get("DBW_VGG_WEIGHTS")
         if path:
             if not os.path.exists(path):
@@ -122,14 +126,15 @@ class PerceptualLoss(torch.nn.Module):
     """VGG16 perceptual loss with channel-normalized features at relu3_3."""
 
     def __init__(self, feature_levels=None, normalize_input=True,
-                 normalize_features=True, sum_channels=False, vgg=None):
+                 normalize_features=True, sum_channels=False, vgg=None,
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.feature_levels = list(feature_levels or [3])
         self.max_level = max(self.feature_levels)
         self.normalize_input = normalize_input
         self.normalize_features = normalize_features
         self.sum_channels = sum_channels
-        self.vgg = vgg or VGG16Features.from_env_or_random()
+        self.vgg = vgg or VGG16Features.from_env_or_random(device=device)
 
     def forward(self, imgs, rec):
         if self.normalize_input:
@@ -157,9 +162,9 @@ class LPIPSLoss(torch.nn.Module):
     """LPIPS (VGG flavor) with uniform channel weights unless
     $DBW_LPIPS_WEIGHTS names an .npz of ``lin{i}`` arrays."""
 
-    def __init__(self, vgg=None, lin_path=None):
+    def __init__(self, vgg=None, lin_path=None, device=DEFAULT_DEVICE):
         super().__init__()
-        self.vgg = vgg or VGG16Features.from_env_or_random()
+        self.vgg = vgg or VGG16Features.from_env_or_random(device=device)
         lin_path = lin_path or os.environ.get("DBW_LPIPS_WEIGHTS")
         self.lins = None
         if lin_path and os.path.exists(lin_path):

@@ -20,38 +20,56 @@ from .. import kernels
 MAX_COLS = 16
 
 
-def small_table_scatter_add_plain(idx, upd, n_rows):
+def _out_table(out, n_rows, C, like):
+    """The (n_rows, >= C) table to add into: ``out`` (zeroed by the caller)
+    or a new zeroed (n_rows, C) one."""
+    if out is None:
+        return torch.zeros((n_rows, C), dtype=like.dtype, device=like.device)
+    if out.dim() != 2 or out.shape[0] != n_rows or out.shape[1] < C:
+        raise ValueError(f"small_table_scatter_add: out {tuple(out.shape)}, "
+                         f"n_rows={n_rows}, C={C}")
+    return out
+
+
+def small_table_scatter_add_plain(idx, upd, n_rows, out=None):
     """Plain K5: index_add_ of the rows of upd (N, C) at idx (N,) into
-    (n_rows, C), over the rows with 0 <= idx < n_rows."""
+    (n_rows, C), over the rows with 0 <= idx < n_rows; into the first C
+    columns of ``out`` where given. Returns those columns."""
     keep = (idx >= 0) & (idx < n_rows)
-    out = torch.zeros((n_rows, upd.shape[1]), dtype=upd.dtype, device=upd.device)
-    return out.index_add_(0, idx[keep].long(), upd[keep])
+    C = upd.shape[1]
+    out = _out_table(out, n_rows, C, upd)
+    return out[:, :C].index_add_(0, idx[keep].long(), upd[keep])
 
 
-def small_table_scatter_add_cuda(idx, upd, n_rows):
+def small_table_scatter_add_cuda(idx, upd, n_rows, out=None):
     """K5 kernel launch. ``upd`` may be a column slice of a wider matrix
-    (unit column stride, any row stride)."""
+    and ``out`` (n_rows, >= C), zeroed, a wider one (unit column stride, any
+    row stride): the kernel adds into its first C columns in place."""
     N, C = upd.shape
     if tuple(idx.shape) != (N,) or not 1 <= C <= MAX_COLS:
         raise ValueError(f"small_table_scatter_add_cuda: idx {tuple(idx.shape)}, "
                          f"upd {tuple(upd.shape)}")
-    if not upd.is_cuda or upd.dtype != torch.float32 or (N > 1 and upd.stride(1) != 1) \
-            or upd.data_ptr() % 4:
-        raise ValueError("small_table_scatter_add_cuda: upd must be a CUDA f32 "
-                         "matrix with unit column stride")
+    out = _out_table(out, n_rows, C, upd)
+    for t, name in ((upd, "upd"), (out, "out")):
+        if not t.is_cuda or t.dtype != torch.float32 or (t.shape[0] > 1 and t.stride(1) != 1) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"small_table_scatter_add_cuda: {name} must be a CUDA f32 "
+                             "matrix with unit column stride")
     ld = upd.stride(0) if N > 1 else C
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=upd.device)
+    ldo = out.stride(0) if n_rows > 1 else out.shape[1]
     kernels.launch("dbw_small_scatter", "K5_small_scatter",
                    kernels.check(idx, torch.int32, "idx"), upd.data_ptr(),
-                   N, C, ld, int(n_rows), out.data_ptr())
-    return out
+                   N, C, ld, int(n_rows), out.data_ptr(), ldo)
+    return out[:, :C]
 
 
-def small_table_scatter_add(idx, upd, n_rows):
-    """Scatter-add of upd (N, C <= 16) at idx (N,) int32 into (n_rows, C)."""
+def small_table_scatter_add(idx, upd, n_rows, out=None):
+    """Scatter-add of upd (N, C <= 16) at idx (N,) int32 into (n_rows, C),
+    or into the first C columns of ``out`` (n_rows, >= C), zeroed by the
+    caller; returns those columns."""
     if upd.is_cuda:
-        return small_table_scatter_add_cuda(idx, upd, n_rows)
-    return small_table_scatter_add_plain(idx, upd, n_rows)
+        return small_table_scatter_add_cuda(idx, upd, n_rows, out)
+    return small_table_scatter_add_plain(idx, upd, n_rows, out)
 
 
 class _GatherRowsPartial(torch.autograd.Function):
@@ -65,8 +83,9 @@ class _GatherRowsPartial(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         F, C = ctx.shape
+        # K5 adds into the first n columns of the zeroed (F, C) gradient
         d = torch.zeros((F, C), dtype=g.dtype, device=g.device)
-        d[:, :ctx.n] = small_table_scatter_add(idx, g.contiguous()[:, :ctx.n], F)
+        small_table_scatter_add(idx, g.contiguous()[:, :ctx.n], F, out=d)
         return d, None, None
 
 

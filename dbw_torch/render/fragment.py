@@ -12,6 +12,12 @@ Face-table columns (built by the renderer):
   0-5 x0 y0 x1 y1 x2 y2 (NDC), 6-8 z0 z1 z2, 9 face alpha, 10-11 pad,
   12-17 u0 v0 u1 v1 u2 v2, 18 map index, 19 pad.
 
+The backward reads the alpha math's inputs (columns 0-5 and 9) from the
+face table; the TPU version saves them per fragment as a residual, which
+the port does not. The fragments come in the layout n = pixel * K + slot of
+the renderers' (P, K) streams; ``K`` tells K3 that layout, so that a warp
+takes one slot of 32 consecutive pixels (the result does not depend on it).
+
 ``frag_fwd``/``frag_bwd`` launch the CUDA kernels (csrc/fragment.cu) for
 CUDA tensors and run the plain versions for CPU tensors.
 """
@@ -25,6 +31,7 @@ import torch
 from .. import kernels
 
 N_COLS = 20
+MAX_K = 32
 
 
 class FragFlags(NamedTuple):
@@ -142,24 +149,37 @@ def residual(cols):
 
 
 def frag_fwd_plain(table, ids, vld, px, py, sigma, flags: FragFlags):
-    """Plain K2: (id00, wx, wy, alpha, res) for each fragment."""
+    """Plain K2: (id00, wx, wy, alpha) for each fragment."""
     cols = table[ids.long()]
-    res = residual(cols)
-    alpha = alpha_math(res, px, py, vld, sigma, flags.clip_inside)
+    alpha = alpha_math(residual(cols), px, py, vld, sigma, flags.clip_inside)
     id00, wx, wy = uv_math(cols, px, py, flags)
-    return id00, wx, wy, alpha, res
+    return id00, wx, wy, alpha
 
 
-def frag_bwd_plain(ids, vld, px, py, res, d_alpha, sigma, clip_inside, rows):
-    """Plain K3: autograd through the alpha math, then an index_add_ of the
-    (N, 8) residual cotangents into a (rows, 8) table."""
+def frag_bwd_plain(table, ids, vld, px, py, d_alpha, sigma, clip_inside, K):
+    """Plain K3: the alpha math's inputs ``residual(table[ids])``, autograd
+    through the alpha math, then an index_add_ of the (N, 8) cotangents
+    into a (rows, 8) table. The fragment layout K does not change the sums."""
+    _check_layout(ids.shape[0], K)
+    res = residual(table[ids.long()])
     with torch.enable_grad():
         r = res.detach().requires_grad_(True)
         a = alpha_math(r, px, py, vld, sigma, clip_inside)
         (d_res,) = torch.autograd.grad(a, r, d_alpha, allow_unused=True)
     d_res = torch.zeros_like(res) if d_res is None else d_res
-    out = torch.zeros((rows, 8), dtype=res.dtype, device=res.device)
+    out = torch.zeros((table.shape[0], 8), dtype=res.dtype, device=res.device)
     return out.index_add_(0, ids.long(), d_res)
+
+
+def _check_layout(N, K):
+    """N fragments in the layout n = pixel * K + slot, K <= 32."""
+    if not 1 <= K <= MAX_K or N % K:
+        raise ValueError(f"fragment layout: N={N} fragments, K={K}")
+
+
+def _check_table(table, name):
+    if table.dim() != 2 or table.shape[1] != N_COLS:
+        raise ValueError(f"{name}: table {tuple(table.shape)}")
 
 
 def _check_streams(N, *streams):
@@ -173,8 +193,7 @@ def _check_streams(N, *streams):
 def frag_fwd_cuda(table, ids, vld, px, py, sigma, flags: FragFlags):
     """K2 kernel launch."""
     N = ids.shape[0]
-    if table.dim() != 2 or table.shape[1] != N_COLS:
-        raise ValueError(f"frag_fwd_cuda: table {tuple(table.shape)}")
+    _check_table(table, "frag_fwd_cuda")
     _check_streams(N, vld, px, py)
     ptrs = [kernels.check(table, torch.float32, "table", align=16),
             kernels.check(ids, torch.int32, "ids")]
@@ -184,29 +203,29 @@ def frag_fwd_cuda(table, ids, vld, px, py, sigma, flags: FragFlags):
     id00 = torch.empty(N, dtype=torch.int32, device=dev)
     wx, wy, alpha = (torch.empty(N, dtype=torch.float32, device=dev)
                      for _ in range(3))
-    res = torch.empty((N, 8), dtype=torch.float32, device=dev)
     kernels.launch(
         "dbw_frag_fwd", "K2_frag_fwd", *ptrs, N, float(sigma),
         int(flags.persp), int(flags.clip_bary), int(flags.clip_inside),
         int(flags.TH), int(flags.TW), id00.data_ptr(), wx.data_ptr(),
-        wy.data_ptr(), alpha.data_ptr(), res.data_ptr(),
+        wy.data_ptr(), alpha.data_ptr(),
     )
-    return id00, wx, wy, alpha, res
+    return id00, wx, wy, alpha
 
 
-def frag_bwd_cuda(ids, vld, px, py, res, d_alpha, sigma, clip_inside, rows):
-    """K3 kernel launch: (rows, 8) face-table cotangent."""
+def frag_bwd_cuda(table, ids, vld, px, py, d_alpha, sigma, clip_inside, K):
+    """K3 kernel launch: (rows, 8) face-table cotangent of N = P * K
+    fragments in the layout n = pixel * K + slot."""
     N = ids.shape[0]
+    _check_table(table, "frag_bwd_cuda")
     _check_streams(N, vld, px, py, d_alpha)
-    if tuple(res.shape) != (N, 8):
-        raise ValueError(f"frag_bwd_cuda: res {tuple(res.shape)}, N={N}")
-    ptrs = [kernels.check(ids, torch.int32, "ids")]
+    _check_layout(N, K)
+    ptrs = [kernels.check(table, torch.float32, "table", align=16),
+            kernels.check(ids, torch.int32, "ids")]
     ptrs += [kernels.check(t, torch.float32, n)
-             for t, n in ((vld, "vld"), (px, "px"), (py, "py"))]
-    ptrs.append(kernels.check(res, torch.float32, "res", align=16))
-    ptrs.append(kernels.check(d_alpha, torch.float32, "d_alpha"))
-    out = torch.zeros((rows, 8), dtype=torch.float32, device=ids.device)
-    kernels.launch("dbw_frag_bwd", "K3_frag_bwd", *ptrs, N, float(sigma),
+             for t, n in ((vld, "vld"), (px, "px"), (py, "py"), (d_alpha, "d_alpha"))]
+    # zeroed, and 16-byte aligned for the kernel's float4 atomics
+    out = torch.zeros((table.shape[0], 8), dtype=torch.float32, device=ids.device)
+    kernels.launch("dbw_frag_bwd", "K3_frag_bwd", *ptrs, N, int(K), float(sigma),
                    int(clip_inside), out.data_ptr())
     return out
 
@@ -217,39 +236,40 @@ def frag_fwd(table, ids, vld, px, py, sigma, flags):
     return frag_fwd_plain(table, ids, vld, px, py, sigma, flags)
 
 
-def frag_bwd(ids, vld, px, py, res, d_alpha, sigma, clip_inside, rows):
-    fn = frag_bwd_cuda if ids.is_cuda else frag_bwd_plain
-    return fn(ids, vld, px, py, res, d_alpha, sigma, clip_inside, rows)
+def frag_bwd(table, ids, vld, px, py, d_alpha, sigma, clip_inside, K):
+    fn = frag_bwd_cuda if table.is_cuda else frag_bwd_plain
+    return fn(table, ids, vld, px, py, d_alpha, sigma, clip_inside, K)
 
 
 class _FragmentShade(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids, vld, px, py, sigma, flags):
-        id00, wx, wy, alpha, res = frag_fwd(table, ids, vld, px, py, sigma,
-                                            flags)
-        ctx.save_for_backward(ids, vld, px, py, res)
-        ctx.sigma, ctx.flags, ctx.rows = sigma, flags, table.shape[0]
+    def forward(ctx, table, ids, vld, px, py, sigma, flags, K):
+        id00, wx, wy, alpha = frag_fwd(table, ids, vld, px, py, sigma, flags)
+        # the backward reads the alpha math's inputs from the table itself
+        ctx.save_for_backward(table, ids, vld, px, py)
+        ctx.sigma, ctx.flags, ctx.K = sigma, flags, K
         ctx.mark_non_differentiable(id00, wx, wy)
         return id00, wx, wy, alpha
 
     @staticmethod
     def backward(ctx, _g_id00, _g_wx, _g_wy, g_alpha):
-        ids, vld, px, py, res = ctx.saved_tensors
+        table, ids, vld, px, py = ctx.saved_tensors
         if g_alpha is None:
-            return (None,) * 7
-        d8 = frag_bwd(ids, vld, px, py, res, g_alpha.contiguous(), ctx.sigma,
-                      ctx.flags.clip_inside, ctx.rows)
-        d_table = torch.zeros((ctx.rows, N_COLS), dtype=d8.dtype,
+            return (None,) * 8
+        d8 = frag_bwd(table, ids, vld, px, py, g_alpha.contiguous(), ctx.sigma,
+                      ctx.flags.clip_inside, ctx.K)
+        d_table = torch.zeros((table.shape[0], N_COLS), dtype=d8.dtype,
                               device=d8.device)
         d_table[:, 0:6] = d8[:, 0:6]
         d_table[:, 9] = d8[:, 6]
         # sigma is a schedule constant: no cotangent
-        return d_table, None, None, None, None, None, None
+        return d_table, None, None, None, None, None, None, None
 
 
-def fused_fragment_shade(table, ids, vld, px, py, sigma, flags: FragFlags):
+def fused_fragment_shade(table, ids, vld, px, py, sigma, flags: FragFlags, K):
     """table: (rows, 20) f32 face table; ids: (N,) int32 row per fragment
-    (empty slots point at any real row with vld = 0); vld, px, py: (N,) f32.
-    Returns (id00 int32, wx, wy, alpha), each (N,); differentiable in the
-    vertex-xy and face-alpha columns of ``table``."""
-    return _FragmentShade.apply(table, ids, vld, px, py, float(sigma), flags)
+    (empty slots point at any real row with vld = 0); vld, px, py: (N,) f32,
+    N = P * K fragments in the layout n = pixel * K + slot. Returns (id00
+    int32, wx, wy, alpha), each (N,); differentiable in the vertex-xy and
+    face-alpha columns of ``table``."""
+    return _FragmentShade.apply(table, ids, vld, px, py, float(sigma), flags, K)

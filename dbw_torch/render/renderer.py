@@ -108,7 +108,7 @@ class Renderer:
                                                        image_size=size, row0=row0)
             flags = FragFlags(True, True, cfg.clip_inside, TH, TW)
             id00, wx, wy, alpha = fused_fragment_shade(table, ids, vld, px, py,
-                                                       sigma, flags)
+                                                       sigma, flags, K)
             colors = sample_quad(maps_flat, id00, wx, wy, TW, K)
         else:
             table, ids, vld, px, py = fragment_streams(scene, geom, p2f,

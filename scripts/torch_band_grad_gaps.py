@@ -31,17 +31,22 @@ def f64_twins():
     from dbw_torch.ops import scatter, texel_grad
     from dbw_torch.render import fragment, meshes
 
-    def frag_bwd(ids, vld, px, py, res, d_alpha, sigma, clip_inside, rows):
-        return fragment.frag_bwd_plain(ids, vld.double(), px.double(), py.double(),
-                                       res.double(), d_alpha.double(), sigma,
-                                       clip_inside, rows).float()
+    def frag_bwd(table, ids, vld, px, py, d_alpha, sigma, clip_inside, K):
+        # the residual rows of the float64 table are the float32 ones exactly
+        return fragment.frag_bwd_plain(table.double(), ids, vld.double(), px.double(),
+                                       py.double(), d_alpha.double(), sigma,
+                                       clip_inside, K).float()
 
     def quad_maps_grad(id00, wx, wy, g, R, TW, K):
         return texel_grad.quad_maps_grad_plain(id00, wx.double(), wy.double(),
                                                g.double(), R, TW).float()
 
-    def small_table_scatter_add(idx, upd, n_rows):
-        return scatter.small_table_scatter_add_plain(idx, upd.double(), n_rows).float()
+    def small_table_scatter_add(idx, upd, n_rows, out=None):
+        d = scatter.small_table_scatter_add_plain(idx, upd.double(), n_rows).float()
+        if out is None:
+            return d
+        out[:, :d.shape[1]] += d
+        return out[:, :d.shape[1]]
 
     return {"K3_frag_bwd": (fragment, "frag_bwd", frag_bwd),
             "K4_texel_grad": (meshes, "quad_maps_grad", quad_maps_grad),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K1 and K4 kernels of two checkouts on one card.
+"""Time the PyTorch port's hand-written kernels of two checkouts on one card.
 
-    python3 scripts/torch_kernel_ab.py --base DIR [--reps 20]
+    python3 scripts/torch_kernel_ab.py --base DIR
 
 DIR is another checkout of the repository, for example the parent commit
 unpacked with ``git archive``. The script runs itself in one child process
@@ -9,16 +9,23 @@ for each of base, this checkout, this checkout, base (in turns, so that a
 drift of the card shows). Each child builds its checkout's kernels and
 times, on the shipped configs/synthetic/dtu_shaped.yml at 300x400 and 4
 views (the flagship shapes of chip_smoke.py): K1 soft at the blocks pass's
-and the joint scene's faces, K1 hard at the env pass's, and K4 at the
-blocks pass's, env pass's and joint scene's fragments. A time is the median
-of --reps CUDA-event timings of one launch, after one warm-up, as
-chip_smoke.py times. The last line is a JSON object with each kernel's
-times per checkout. Needs one CUDA card.
+and the joint scene's faces, K1 hard at the env pass's, K2 and K3 at the
+blocks pass's, the joint scene's and the band path's fragments (the middle
+band of 3), K4 at the blocks pass's, env pass's and joint scene's
+fragments, and K5 at the env pass's rows. Each version gets its own
+inputs where its signature differs: a K3 that takes a residual gets the
+one its K2 saved, one that takes the table gets the table. Both checkouts
+are timed by this checkout's chip_smoke.py: a time is the median of 5
+CUDA-event pairs, each around 20 back-to-back calls of the wrapper, over
+20; for K3 and K5 also the device time of one launch from a torch.profiler
+trace. The last line is a JSON object with each kernel's times per
+checkout. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import subprocess
@@ -28,18 +35,29 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def child(root, reps):
+def timers():
+    """This checkout's chip_smoke.py, for its timers (cuda_ms, device_ms),
+    which import nothing of the checkout being timed."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_timers", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def child(root):
     sys.path.insert(0, str(root))
     import torch
 
     import chip_smoke as cs
     from dbw_torch import kernels
+    from dbw_torch.ops import scatter as sc
     from dbw_torch.ops import texel_grad as tg
     from dbw_torch.render import fragment as fr
     from dbw_torch.render import rasterize as rz
     from dbw_torch.render.fragment import bary_uv, texel_coords
     from dbw_torch.render.renderer import fragment_streams
 
+    tm = timers()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels.library()
@@ -50,16 +68,25 @@ def child(root, reps):
     phase = model.phase_for_epoch(0)
     R, T = cs.cameras(cs.N_VIEWS, device)
     gen = torch.Generator(device=device).manual_seed(1)
-    takes_k = "K" in inspect.signature(tg.quad_maps_grad_cuda).parameters
+    k3_takes_res = "res" in inspect.signature(fr.frag_bwd_cuda).parameters
+    out, dev = {}, {}
 
-    def ms(fn):
-        return cs.cuda_ms(fn, reps=reps)
+    def time(key, fn, kernel=None):
+        out[key] = tm.cuda_ms(fn)
+        if kernel:
+            dev[key] = tm.device_ms(fn, kernel)
 
-    def k4(id00, wx, wy, g, n_texels, TW, K):
-        extra = (K,) if takes_k else ()
-        return ms(lambda: tg.quad_maps_grad_cuda(id00, wx, wy, g, n_texels, TW, *extra))
+    def k3(key, table, ids, vld, px, py, sigma, flags, K):
+        fwd = fr.frag_fwd_cuda(table, ids, vld, px, py, sigma, flags)
+        d_alpha = torch.randn(ids.shape, generator=gen, device=device) * vld
+        if k3_takes_res:
+            args = (ids, vld, px, py, fwd[4], d_alpha, sigma, flags.clip_inside,
+                    table.shape[0])
+        else:
+            args = (table, ids, vld, px, py, d_alpha, sigma, flags.clip_inside, K)
+        time(key, lambda: fr.frag_bwd_cuda(*args), "frag_bwd_kernel")
+        return fwd
 
-    out = {}
     with torch.no_grad():
         noise = torch.randn((model.n_blocks,), generator=gen, device=device)
         scenes = {"blocks pass": model.build_blocks(params, phase, noise=noise)[0],
@@ -67,19 +94,27 @@ def child(root, reps):
         rend = model.renderer
         sigma, blur = rend.sigma_blur(phase.sigma)
         rcfg = rend.config.raster_config()
+        K = rcfg.faces_per_pixel
         for path, scene in scenes.items():
             geom = rz.project_faces(scene.verts, scene.faces, R, T, rend.camera,
                                     z_clip=rend.config.z_clip)
             packed = rz.pack_faces(geom)
-            out[f"K1_select [{path}]"] = ms(lambda: rz.rasterize_cuda(packed, blur, rcfg))
+            time(f"K1_select [{path}]", lambda: rz.rasterize_cuda(packed, blur, rcfg))
             p2f = rz.rasterize_cuda(packed, blur, rcfg)
-            table, ids, vld, px, py = fragment_streams(scene, geom, p2f)
+            streams = fragment_streams(scene, geom, p2f)
             M, TH, TW = scene.atlas.maps.shape[:3]
             flags = fr.FragFlags(True, True, rend.config.clip_inside, TH, TW)
-            id00, wx, wy = fr.frag_fwd_cuda(table, ids, vld, px, py, sigma, flags)[:3]
-            g = torch.randn((ids.numel(), 3), generator=gen, device=device) * vld[:, None]
-            out[f"K4_texel_grad [{path}]"] = k4(id00, wx, wy, g, M * TH * TW, TW,
-                                                rcfg.faces_per_pixel)
+            time(f"K2_frag_fwd [{path}]", lambda: fr.frag_fwd_cuda(*streams, sigma, flags))
+            id00, wx, wy = k3(f"K3_frag_bwd [{path}]", *streams, sigma, flags, K)[:3]
+            g = torch.randn((id00.numel(), 3), generator=gen, device=device) * streams[2][:, None]
+            time(f"K4_texel_grad [{path}]",
+                 lambda: tg.quad_maps_grad_cuda(id00, wx, wy, g, M * TH * TW, TW, K))
+            if path == "blocks pass":
+                band = cs.BAND_SPLITS["3 bands"][1]
+                bp2f = rz.rasterize_cuda(packed, blur, rcfg, row_range=band)
+                bstreams = fragment_streams(scene, geom, bp2f, image_size=rcfg.image_size,
+                                            row0=band[0])
+                k3("K3_frag_bwd [band]", *bstreams, sigma, flags, K)
 
         env, _ = model.build_env(params, phase)
         erend = model.renderer_env
@@ -87,8 +122,8 @@ def child(root, reps):
                                  z_clip=erend.config.z_clip)
         epacked = rz.pack_faces(egeom)
         ecfg = erend.config.raster_config()
-        out["K1_select_hard [env pass]"] = ms(
-            lambda: rz.rasterize_cuda(epacked, 0.0, ecfg, hard=True))
+        time("K1_select_hard [env pass]",
+             lambda: rz.rasterize_cuda(epacked, 0.0, ecfg, hard=True))
         ep2f = rz.rasterize_cuda(epacked, 0.0, ecfg, hard=True)
         etable, eids, evld, epx, epy = fragment_streams(env, egeom, ep2f, detach_z=False)
         eidx = torch.where(evld > 0, eids, torch.full_like(eids, -1))
@@ -98,20 +133,25 @@ def child(root, reps):
         M, TH, TW = env.atlas.maps.shape[:3]
         id00, wx, wy = texel_coords(uv_u, uv_v, rows[:, 18], TH, TW)
         g = torch.randn((eidx.numel(), 3), generator=gen, device=device) * evld[:, None]
-        out["K4_texel_grad [env pass]"] = k4(id00, wx, wy, g, M * TH * TW, TW, 1)
-    print(json.dumps({"root": str(root), "ms": out,
-                      "median_of": reps, "timer": "CUDA events, one launch"}),
-          flush=True)
+        time("K4_texel_grad [env pass]",
+             lambda: tg.quad_maps_grad_cuda(id00, wx, wy, g, M * TH * TW, TW, 1))
+        upd = torch.randn((eidx.numel(), etable.shape[1]), generator=gen,
+                          device=device)[:, :12]
+        time("K5_small_scatter [env pass]",
+             lambda: sc.small_table_scatter_add_cuda(eidx, upd, etable.shape[0]),
+             "small_scatter_kernel")
+    print(json.dumps({"root": str(root), "ms": out, "device_ms": dev,
+                      "timer": "CUDA events around 20 calls, median of 5; "
+                               "device_ms: torch.profiler, per launch"}), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", type=Path, help="the other checkout")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     if args.child:
-        return child(args.child.resolve(), args.reps)
+        return child(args.child.resolve())
     import torch
 
     if not torch.cuda.is_available():
@@ -126,19 +166,23 @@ def main():
     runs = []
     for tag, root in order:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                               str(root), "--reps", str(args.reps)],
-                              cwd=root, capture_output=True, text=True)
+                               str(root)], cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(tag, json.dumps(res["ms"]), flush=True)
-        runs.append((tag, res["ms"]))
-    table = {k: {tag: sorted(r[k] for t, r in runs if t == tag) for tag in ("base", "this")}
-             for k in runs[0][1]}
-    for k, v in table.items():
-        print(f"{k}: base {v['base']} ms, this {v['this']} ms", flush=True)
-    print(json.dumps({"card": smi, "ms": table}), flush=True)
+        print(tag, json.dumps({"ms": res["ms"], "device_ms": res["device_ms"]}), flush=True)
+        runs.append((tag, res))
+    # a device time the profiler did not record is None and left out
+    table = {what: {k: {tag: sorted(r[what][k] for t, r in runs
+                                    if t == tag and r[what][k] is not None)
+                        for tag in ("base", "this")}
+                    for k in runs[0][1][what]}
+             for what in ("ms", "device_ms")}
+    for what, rows in table.items():
+        for k, v in rows.items():
+            print(f"{k} ({what}): base {v['base']}, this {v['this']}", flush=True)
+    print(json.dumps({"card": smi, **table}), flush=True)
     return 0
 
 

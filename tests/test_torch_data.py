@@ -136,3 +136,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert BlocksWorld((8, 8), device="cpu", **small).device.type == "cpu"
+
+
+def test_vgg_and_perceptual_losses_default_to_the_card(monkeypatch):
+    """VGG16Features, from_env_or_random and the perceptual losses built
+    without a vgg refuse their default device with no card, as the other
+    entry points do; device="cpu" builds them on the CPU."""
+    from dbw_torch.losses.vgg import LPIPSLoss, PerceptualLoss, VGG16Features
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("DBW_VGG_WEIGHTS", raising=False)
+    for build in (VGG16Features, VGG16Features.from_env_or_random, PerceptualLoss,
+                  LPIPSLoss):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        built = build(device="cpu")
+        vgg = built if isinstance(built, VGG16Features) else built.vgg
+        assert all(b.device.type == "cpu" for b in vgg.buffers())

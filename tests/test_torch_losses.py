@@ -78,7 +78,7 @@ def test_mse_matches_jax():
 
 
 def test_random_vgg_filters_equal_jax():
-    tv = tvgg.VGG16Features(seed=3)
+    tv = tvgg.VGG16Features(seed=3, device="cpu")
     jv = jvgg.VGG16Features(seed=3)
     assert not tv.pretrained
     for i, (w, b) in enumerate(jv.weights):
@@ -94,7 +94,7 @@ def test_vgg_npz_loader_matches_jax(tmp_path):
              **{f"b{i}": rng.standard_normal(b.shape).astype(np.float32) * 0.1
                 for i, (_, b) in enumerate(ws)})
     path = str(tmp_path / "vgg.npz")
-    tv = tvgg.VGG16Features.from_env_or_random(path=path)
+    tv = tvgg.VGG16Features.from_env_or_random(path=path, device="cpu")
     jv = jvgg.VGG16Features.from_env_or_random(path=path, dtype=jnp.float32)
     assert tv.pretrained and jv.pretrained
     x = rng.random((1, 20, 24, 3)).astype(np.float32)
@@ -104,7 +104,8 @@ def test_vgg_npz_loader_matches_jax(tmp_path):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).detach().numpy(),
                                    np.asarray(r), rtol=1e-4, atol=1e-4)
     with pytest.raises(FileNotFoundError):
-        tvgg.VGG16Features.from_env_or_random(path=str(tmp_path / "missing.npz"))
+        tvgg.VGG16Features.from_env_or_random(path=str(tmp_path / "missing.npz"),
+                                              device="cpu")
 
 
 @pytest.mark.parametrize("flavor", ["lpips", "perceptual"])
@@ -114,7 +115,7 @@ def test_perceptual_losses_match_jax(flavor):
     rec = rng.random((2, 32, 40, 3)).astype(np.float32)
     tcls = {"lpips": tvgg.LPIPSLoss, "perceptual": tvgg.PerceptualLoss}[flavor]
     jcls = {"lpips": jvgg.LPIPSLoss, "perceptual": jvgg.PerceptualLoss}[flavor]
-    tl = tcls(vgg=tvgg.VGG16Features(seed=0))
+    tl = tcls(vgg=tvgg.VGG16Features(seed=0, device="cpu"))
     jl = jcls(vgg=jvgg.VGG16Features(seed=0, dtype=jnp.float32))
     got = _grad(lambda r: tl(torch.from_numpy(imgs), r), rec)
     ref = _jgrad(lambda r: jl(jnp.asarray(imgs), r), rec)
