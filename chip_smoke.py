@@ -35,7 +35,16 @@ Phases, one line each (or a few):
    loader's order, the scheduler's LRs), then a model.pkl round trip that
    must reproduce the next step;
 7. reference: a small model run on the card agrees with the same model run
-   on the CPU (plain versions), losses and gradients, decoupled and joint.
+   on the CPU (plain versions), losses and gradients, decoupled and joint;
+8. trainer: dbw_torch.train.trainer.Trainer on the shipped config at full
+   width (only n_epoches, the stat intervals and the final eval's video
+   knobs overridden) in a temporary run directory: every artifact of the
+   JAX Trainer's synthetic run, finite losses and scores, a resume from its
+   model.pkl at the next epoch, every kernel launched in the run (the
+   supersampled hard selection of the viz and eval renders, K1-hard at 4x,
+   counted on its own); its throughput, the time of one val interval and
+   of the final eval. Phase 3 holds K1-hard at 4x (1200x1600, the scene's
+   1,248 faces and the blocks' 800) bitwise against its plain twin.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -76,6 +85,8 @@ SOURCES = {
                   "dbw_tpu/render/rasterize_pallas.py:97"),
     "K1_select_hard": ("dbw_torch/csrc/raster.cu",
                        "dbw_tpu/render/rasterize_pallas.py:166"),
+    "K1_select_hard_ss": ("dbw_torch/csrc/raster.cu",
+                          "dbw_tpu/render/rasterize_pallas.py:166"),
     "K2_frag_fwd": ("dbw_torch/csrc/fragment.cu",
                     "dbw_tpu/render/fragment_fused.py:190"),
     "K3_frag_bwd": ("dbw_torch/csrc/fragment.cu",
@@ -85,6 +96,16 @@ SOURCES = {
     "K5_small_scatter": ("dbw_torch/csrc/scatter.cu",
                          "dbw_tpu/ops/segment_sum_pallas.py:169"),
 }
+# the kernels of the training step (the main path's); the viz and eval
+# renders add K1_select_hard_ss, the hard selection at 4x supersampling
+STEP_KERNELS = tuple(k for k in SOURCES if k != "K1_select_hard_ss")
+# the trainer phase: the shipped config with these keys overridden only.
+# 16 epochs of 13 batches are 208 steps in groups of steps_per_call 5; the
+# val interval fires at iterations 50 (the first of a ragged tail), 100
+# (inside a full group, so at 101), 150 and 200, the log interval at 8
+# more; the final eval renders trajectory videos of 10 frames for 1 view
+TRAINER_OVERRIDES = dict(n_epoches=16, train_stat_interval=25, val_stat_interval=50,
+                         eval=dict(n_traj_videos=1, NV=10))
 # kernels of the joint-rendering path (no env pass)
 JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad")
 # kernels of the backward, held against their plain twins in the band phase
@@ -465,6 +486,55 @@ def check_env_pass(checks, model, params, phase, R, T, gen):
            index_add_call(eidx[keep].long(), upd[keep].contiguous(), n_rows))
 
 
+def check_viz_selection(checks, model, params, R, T):
+    """K1-hard at 4x supersampling, at the shapes of the viz and eval
+    renders: the eval scene (dome, ground and blocks, 1,248 faces: the
+    quantitative eval and the edge overlays) and the blocks alone (800
+    faces: the flat-lit synthetic renders), 4 views of 1200x1600. The
+    kernel's selection must equal its plain twin's bit for bit (hard K=1
+    selection has no near-ties to excuse)."""
+    from dbw_torch.models.dbw import Phase
+    from dbw_torch.render import rasterize as rz
+    from dbw_torch.render.cameras import ndc_pixel_centers
+
+    phase = Phase.eval_phase(filter_transparent=True)
+    rend = model.renderer_viz
+    rcfg = rend.config.raster_config()
+    rcfg_plain = rcfg._replace(row_chunk=20)
+    for path, scene in (("viz/eval scene", model.build_scene(params, phase)[0]),
+                        ("viz/eval blocks", model.build_blocks(params, phase)[0])):
+        geom = rz.project_faces(scene.verts, scene.faces, R, T, rend.camera,
+                                z_clip=rend.config.z_clip)
+        packed = rz.pack_faces(geom)
+        got = rz.rasterize_cuda(packed, 0.0, rcfg, hard=True)
+        t0 = time.perf_counter()
+        ref = rz.rasterize_plain(packed, 0.0, rcfg_plain)
+        torch.cuda.synchronize()
+        mism = got != ref
+        n_mis = int(mism.sum())
+        for b, i, j, _ in torch.nonzero(mism)[:5].tolist():
+            # a differing slot: both faces' depth keys at the pixel
+            xs, ys = ndc_pixel_centers(rcfg.image_size, got.device)
+            faces = [int(got[b, i, j, 0]), int(ref[b, i, j, 0])]
+            keys = rz._score(xs[j].view(1, 1), ys[i].view(1, 1),
+                             packed[b, [max(f, 0) for f in faces]][None], 0.0,
+                             rcfg.z_clip, True, True)[0].tolist()
+            say("kernels", f"  view {b} pixel ({i}, {j}): kernel face {faces[0]}, plain "
+                f"face {faces[1]}, their depth keys {keys}")
+        say("kernels", f"K1 select hard at 4x [{path}, F={packed.shape[1]}, "
+            f"{tuple(got.shape)}]: {n_mis} of {got.numel()} slots differ from the plain "
+            f"twin (tolerance: none, bitwise); valid slots {int((got >= 0).sum())}; "
+            f"plain twin {time.perf_counter() - t0:.1f} s")
+        checks.setdefault("K1_select_hard_ss", []).append(dict(
+            path=path, max_abs_err=float(n_mis),
+            ms=cuda_ms(lambda: rz.rasterize_cuda(packed, 0.0, rcfg, hard=True)),
+            plain_ms=cuda_ms(lambda: rz.rasterize_plain(packed, 0.0, rcfg_plain),
+                             runs=1, pairs=1),
+            library_ms=None, device_ms=None, ok=n_mis == 0,
+            **k1_bound(packed, got, 0.0, rcfg)))
+        del got, ref
+
+
 def phase_kernels(model, device):
     """Each kernel against its plain version on the card, at the shapes of
     every path that launches it: the main path's blocks and env passes, and
@@ -483,6 +553,7 @@ def phase_kernels(model, device):
         joint, _, _ = model.build_scene(params, phase, noise=noise)
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
         check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
+        check_viz_selection(checks, model, params, R, T)
     for name, cs in checks.items():
         for c in cs:
             lib = "" if c["library_ms"] is None else f", index_add_ {c['library_ms']:.4f} ms"
@@ -568,7 +639,7 @@ def phase_main(cfg, device):
     opt = create_optimizer(cfg, params)
     say("main", "optimizer: Adam, lrs " + ", ".join(
         f"{g['name']} {g['lr']}" for g in opt.param_groups))
-    launches, _ = run_steps("main", model, params, opt, N_STEPS, tuple(SOURCES),
+    launches, _ = run_steps("main", model, params, opt, N_STEPS, STEP_KERNELS,
                             device)
     split_step(model, params, opt, device)
     profile_steps(model, params, opt, device)
@@ -811,7 +882,7 @@ def phase_band(cfg, device):
     losses, grads = band_step(c, band, others)
     launches = dict(kernels.LAUNCHES)
     say("band", f"launches of the band path: {launches}")
-    missing = [k for k in SOURCES if not launches[k]]
+    missing = [k for k in STEP_KERNELS if not launches[k]]
     rel = max(abs(losses[k] - float(full_losses[k])) / max(abs(float(full_losses[k])), 1e-30)
               for k in full_losses)
     finite = all(torch.isfinite(g).all() for g in grads.values())
@@ -1021,6 +1092,164 @@ def phase_reference(cfg, device):
             raise SystemExit(f"card and CPU disagree on the small {mode} model")
 
 
+def timed(fn, spans):
+    """fn, with the host-clock seconds of each call appended to ``spans``
+    (the card synchronized before and after)."""
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def counted(fn, counts, name="K1_select_hard_ss"):
+    """fn, with the launches of kernel ``name`` made by each call appended
+    to ``counts``."""
+    from dbw_torch import kernels
+
+    def wrapper(*args, **kw):
+        before = kernels.LAUNCHES[name]
+        out = fn(*args, **kw)
+        counts.append(kernels.LAUNCHES[name] - before)
+        return out
+    return wrapper
+
+
+def quali_names(n_views):
+    """The files qualitative_eval writes for each of n_views test views."""
+    return [f"{i}_{s}.png" for i in range(n_views)
+            for s in ("inp", "rec", "rec_col", "rec_col_inp", "rec_syn_nobkg",
+                      "rec_syn_nobkg_edged")]
+
+
+def check_run_dir(run, n_blocks_kept, n_blocks):
+    """Every artifact the JAX Trainer writes for a synthetic run; the
+    per-view renders exist when a block survives the eval's filter (the
+    JAX package writes none otherwise). Returns the missing ones."""
+    want = ["train_metrics.tsv", "val_metrics.tsv", "model.pkl", "final_scores.tsv",
+            "quali_eval/mesh.obj", "quali_eval/mesh.mtl", "quali_eval/mesh.png",
+            "quali_eval/mesh_full.obj", "quali_eval/gt.ply", "quali_eval/index.html",
+            "quali_eval/textures/bkg.png", "quali_eval/textures/ground.png",
+            "txt_blocks/img0/final.png"]
+    want += [f"quali_eval/textures/block_{k:02d}.png" for k in range(n_blocks)]
+    for stream in ("reconstructions", "reconstructions_hard", "reconstructions_syn"):
+        want += [f"{stream}/img{k}/{f}" for k in range(4) for f in ("input.png", "final.png")]
+    stems = ["quali_eval/rotated_mesh"] + [f"{st}/img{k}/evolution" for k in range(4)
+                                           for st in ("reconstructions", "reconstructions_hard",
+                                                      "reconstructions_syn")]
+    if n_blocks_kept:
+        want += [f"quali_eval/{n}" for n in quali_names(10)]
+        stems += ["quali_eval/0_rec_traj", "quali_eval/0_rec_traj_syn"]
+    missing = [w for w in want if not (run / w).exists()]
+    missing += [st + ".*" for st in stems
+                if not list((run / st).parent.glob(Path(st).name + ".*"))]
+    return missing
+
+
+def phase_trainer(device):
+    """The port's Trainer on the shipped config at full width (300x400, 49
+    views, 10 blocks, K=10, 256 texels, steps_per_call 5, decoupled env
+    pass), only TRAINER_OVERRIDES changed, in a temporary run directory.
+    The launch counts are set to 0 just before Trainer.run and read just
+    after. Returns (launches, the K1-hard-at-4x launches of one val
+    interval's viz and of the final eval, the phase's numbers)."""
+    from dbw_torch import kernels
+    from dbw_torch.eval import quali, quant
+    from dbw_torch.eval.metrics import Metrics
+    from dbw_torch.train.trainer import Trainer
+    from dbw_torch.utils.config import load_yaml
+
+    cfg = load_yaml(CONFIG)
+    cfg["training"].update(copy.deepcopy(TRAINER_OVERRIDES))
+    seed = cfg["training"]["seed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "run"
+        t0 = time.perf_counter()
+        tr = Trainer(copy.deepcopy(cfg), run, device=device, seed=seed)
+        torch.cuda.synchronize()
+        say("trainer", f"Trainer built in {time.perf_counter() - t0:.1f} s (synthetic GT "
+            f"{tr.dataset.imgs.shape} rendered on the card), {tr.n_batches} batches an "
+            f"epoch, steps_per_call {tr.steps_per_call}, overrides {TRAINER_OVERRIDES}")
+        spans = {k: [] for k in ("val", "viz", "save", "quant", "quali")}
+        viz_ss, eval_ss = [], []
+        tr.run_val_and_log = timed(tr.run_val_and_log, spans["val"])
+        tr.log_visualizations = counted(timed(tr.log_visualizations, spans["viz"]), viz_ss)
+        tr.save = timed(tr.save, spans["save"])
+        tr.evaluate = counted(tr.evaluate, eval_ss)
+        t_train = []
+        plots = tr.save_metric_plots
+        tr.save_metric_plots = lambda: (t_train.append(time.perf_counter()), plots())[1]
+        with routed([(quant, "quantitative_eval", timed(quant.quantitative_eval,
+                                                        spans["quant"])),
+                     (quali, "qualitative_eval", timed(quali.qualitative_eval,
+                                                       spans["quali"]))]):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            tr.run(seed=seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        n_steps = tr.n_epoches * tr.n_batches
+        say("trainer", f"run in {wall:.1f} s: {n_steps} steps and "
+            f"{len(spans['val'])} val intervals in {t_train[0] - t0:.1f} s, then plots, "
+            f"final viz and videos, final eval; launches {launches}")
+
+        log = Metrics(log_file=run / "train_metrics.tsv", append=True).read_log()
+        vals = np.stack([v for k, v in log.items() if k.startswith("loss")])
+        scores_txt = (run / "final_scores.tsv").read_text().splitlines()
+        scores = dict(zip(scores_txt[0].split("\t"), map(float, scores_txt[1].split("\t"))))
+        r5 = (ROOT / "runs" / "synthetic" / "dtu_shaped_r5" / "final_scores.tsv")
+        r5_header = r5.read_text().splitlines()[0].split("\t")
+        missing = check_run_dir(run, int(scores["n_blocks"]), tr.model.n_blocks)
+        tpi = log["time/img"]
+        steady = float(np.median(tpi[1:]))
+        # time/img is per real view: an epoch's steps take len(dataset) views
+        views_per_step = len(tr.dataset) / tr.n_batches
+        say("trainer", f"train_metrics.tsv: {len(tpi)} rows at iterations "
+            f"{[int(i) for i in log['iteration']]}; loss_total "
+            f"{log['loss_total'][0]:.6f} -> {log['loss_total'][-1]:.6f}; median time/img "
+            f"{float(np.median(tpi)):.6f} s of all windows, {steady:.6f} s past the first "
+            f"(its window holds the first viz): {1.0 / (views_per_step * steady):.3f} steps/s "
+            f"at {views_per_step:.3f} real views a step; "
+            f"{n_steps / (t_train[0] - t0):.3f} steps/s over the whole training loop "
+            "(every interval's work included)")
+        say("trainer", "one val interval (host clock, card synchronized): opacity check "
+            f"{1e3 * float(np.median(spans['val'])):.1f} ms, viz "
+            f"{1e3 * float(np.median(spans['viz'][1:-1])):.1f} ms, save "
+            f"{1e3 * float(np.median(spans['save'][:-1])):.1f} ms (medians over "
+            f"{len(spans['val'])}); K1-hard at 4x launches: {viz_ss[1]} a viz, "
+            f"{eval_ss[0]} in the final eval")
+        say("trainer", f"final eval: quantitative {spans['quant'][0]:.2f} s, qualitative "
+            f"{spans['quali'][0]:.2f} s; final_scores {scores}")
+        say("trainer", f"final_scores.tsv header equals r5's {scores_txt[0].split(chr(9)) == r5_header}"
+            f"; blocks kept by the eval filter {int(scores['n_blocks'])}; missing artifacts "
+            f"{missing}")
+
+        tr2 = Trainer(dict(copy.deepcopy(cfg), training=dict(
+            cfg["training"], resume=str(run / "model.pkl"),
+            n_epoches=tr.n_epoches + 1)), Path(tmp) / "resumed", device=device, seed=seed)
+        say("trainer", f"resumed from model.pkl: epoch_start {tr2.epoch_start}, "
+            f"batch_start {tr2.batch_start}, step counter {tr2._step_ctr} (want "
+            f"{tr.n_epoches + 1}, 1, {n_steps})")
+        ok = (np.isfinite(vals).all() and all(math.isfinite(v) for v in scores.values())
+              and scores_txt[0].split("\t") == r5_header and not missing
+              and (tr2.epoch_start, tr2.batch_start, tr2._step_ctr)
+              == (tr.n_epoches + 1, 1, n_steps))
+        not_launched = [k for k in SOURCES if not launches[k]]
+        if not ok or not_launched:
+            raise SystemExit(f"trainer phase failed (kernels not launched: {not_launched})")
+    numbers = dict(steps_per_s=n_steps / (t_train[0] - t0),
+                   steady_steps_per_s=1.0 / (views_per_step * steady),
+                   val_interval_ms=1e3 * float(np.median(spans["val"]) + np.median(
+                       spans["viz"][1:-1]) + np.median(spans["save"][:-1])),
+                   quant_s=spans["quant"][0], quali_s=spans["quali"][0])
+    return launches, viz_ss[1], eval_ss[0], numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1060,17 +1289,25 @@ def main():
     per_step["band"] = band
     phase_train(cfg, device)
     phase_reference(cfg, device)
+    trainer, viz_ss, eval_ss, numbers = phase_trainer(device)
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
+    per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
+        n: 0.0 for n in SOURCES}
     for n, r in results.items():
         for c in r["checks"]:
             c["launches_per_step"] = per_step[c["path"]][n]
+    # the main path's counts (the trainer phase's for the viz selection,
+    # which the training step does not launch)
+    main_launches = dict(launches, K1_select_hard_ss=trainer["K1_select_hard_ss"])
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
-         "replaces": SOURCES[n][1], "launches": launches[n],
+         "replaces": SOURCES[n][1], "launches": main_launches[n],
          "launches_per_step": launches[n] / N_STEPS, "band_launches": band[n],
-         **results[n]}
-        for n in SOURCES]}
+         "trainer_launches": trainer[n], **results[n]}
+        for n in SOURCES], "trainer": numbers}
+    line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
+        launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -30,8 +30,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {"K1_select": 0, "K1_select_hard": 0, "K2_frag_fwd": 0,
-            "K3_frag_bwd": 0, "K4_texel_grad": 0, "K5_small_scatter": 0}
+LAUNCHES = {"K1_select": 0, "K1_select_hard": 0, "K1_select_hard_ss": 0,
+            "K2_frag_fwd": 0, "K3_frag_bwd": 0, "K4_texel_grad": 0,
+            "K5_small_scatter": 0}
 # a launcher's return code for an empty input (no kernel launched)
 NOTHING_LAUNCHED = -1
 

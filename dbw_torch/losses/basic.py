@@ -13,6 +13,11 @@ def l1_loss(a, b):
     return torch.mean(torch.abs(a - b))
 
 
+def mse2psnr(x):
+    """PSNR in dB of a mean squared error on [0, 1] images."""
+    return -10.0 * torch.log(torch.as_tensor(x)) / torch.log(torch.tensor(10.0))
+
+
 # TV norms reduce the CHANNEL axis of a diff tensor (..., C) -> (...)
 tv_norm_funcs = {
     "l1": lambda t: t.abs().sum(-1),

@@ -172,7 +172,20 @@ class LPIPSLoss(torch.nn.Module):
             self.lins = [torch.as_tensor(d[f"lin{i}"]).reshape(-1)
                          for i in range(5)]
 
+    @property
+    def label(self):
+        """The name of the eval's LPIPS column: LPIPS only with pretrained
+        VGG weights and learned linear heads, else labeled as the
+        fallback it is."""
+        if not self.vgg.pretrained:
+            return "LPIPS_randvgg"
+        if self.lins is None:
+            return "LPIPS_uniform"
+        return "LPIPS"
+
     def forward(self, imgs, rec, normalize=True, reduce=True):
+        """LPIPS distance; ``reduce=False`` returns the per-view (B,)
+        vector."""
         if normalize:
             imgs = imgs * 2.0 - 1.0
             rec = rec * 2.0 - 1.0

@@ -14,13 +14,15 @@ Ported: both rendering branches (``decouple_rendering: True``, the hard
 env pass of dome and ground composited under the soft blocks pass; and
 ``False``, env and blocks as one scene through the soft renderer), the
 losses and ``forward``, with the pixel-band hooks of the JAX package's
-sharded trainers (``row_range``, ``rec_gather``).
+sharded trainers (``row_range``, ``rec_gather``); and the viz and eval
+surface: the supersampled ``renderer_viz`` and flat-lit ``renderer_light``,
+the synthetic-color scene and render, opacities and face palettes.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -36,7 +38,8 @@ from ..ops.superquadric import implicit_sq, parametric_sq
 from ..ops.uv import icosphere_uv_atlas, pad_u_atlas, spherical_uv_from_points
 from ..render.cameras import Camera
 from ..render.meshes import MeshScene, TextureAtlas, concat_scenes
-from ..render.renderer import make_env_renderer, make_train_renderer
+from ..render.renderer import make_env_renderer, make_train_renderer, make_viz_renderer
+from ..utils.colors import fancy_colormap
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 DECIMATE_FACTOR = 8
@@ -86,6 +89,7 @@ class SceneStatics(NamedTuple):
     block_uv_verts: torch.Tensor
     R_world: torch.Tensor
     T_world: torch.Tensor
+    block_colors: torch.Tensor  # (N, 3) synthetic-color palette
 
 
 class BlocksWorld:
@@ -150,6 +154,7 @@ class BlocksWorld:
         vgg_filter_seed = int(kw.pop("vgg_filter_seed", 0))
         _no_unknown(kw, "loss config")
         self.loss_weights = {k: v for k, v in weights.items() if v > 0}
+        self.loss_names = [f"loss_{n}" for n in list(self.loss_weights) + ["total"]]
         self.perceptual_loss = None
         if "perceptual" in self.loss_weights:
             shared_vgg = vgg or VGG16Features.from_env_or_random(
@@ -195,6 +200,7 @@ class BlocksWorld:
         ground_uvs = rescale_uv((pv[:, [0, 2]] / self.z_far + 1) / 2, TSb, TSb)
 
         R_world = euler_world_matrix(*self.R_world_euler)
+        colors = fancy_colormap(np.linspace(0, 1, self.n_blocks + 1)[1:])
         dev = self.device
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -204,8 +210,13 @@ class BlocksWorld:
             f32(eta), f32(omega),
             i64(bf), i64(uv_faces),
             f32(rescale_uv(uv_verts, TS, TS + p_left + p_right)),
-            f32(R_world), f32(self.T_world),
+            f32(R_world), f32(self.T_world), f32(colors),
         )
+
+    @property
+    def env_n_faces(self):
+        """Faces of the background dome and the ground."""
+        return int(self.statics.bkg_faces.shape[0] + self.statics.ground_faces.shape[0])
 
     # -- params / renderer ------------------------------------------------
 
@@ -248,8 +259,9 @@ class BlocksWorld:
 
     def set_camera(self, K_ndc):
         """Install the dataset camera (NDC K of the first view) and build the
-        training renderer. Supports the 'perspective' camera and ambient
-        lights, the configuration of the shipped training configs."""
+        renderers: training, env, viz and light. Supports the 'perspective'
+        camera and ambient lights, the configuration of the shipped
+        configs."""
         rc = dict(self._renderer_cfg)
         had_cam_cfg = rc.get("cameras") is not None
         cam_cfg = dict(rc.pop("cameras", None) or {})
@@ -270,11 +282,12 @@ class BlocksWorld:
         fpp = rc.pop("faces_per_pixel", 25)
         rc.pop("sigma", None)
         rc.pop("perspective_correct", None)
+        z_clip = rc.pop("z_clip", 1e-3) or 1e-3
         shared = dict(
             shading=rc.pop("shading_type", "raw"),
             background_color=tuple(rc.pop("background_color", (0.0, 0.0, 0.0))),
             ambient_color=None if amb == (1.0, 1.0, 1.0) else amb,
-            z_clip=rc.pop("z_clip", 1e-3) or 1e-3,
+            light_type="ambient", z_clip=z_clip,
         )
         self.renderer = make_train_renderer(
             self.img_size, self.camera, faces_per_pixel=fpp,
@@ -284,6 +297,13 @@ class BlocksWorld:
         )
         self.renderer_env = make_env_renderer(self.img_size, self.camera,
                                               **shared)
+        self.renderer_viz = make_viz_renderer(self.img_size, self.camera, **shared)
+        # the flat-lit synthetic renders: white background, a fixed
+        # camera-frame directional light (reference dbw.py:139-143)
+        self.renderer_light = make_viz_renderer(
+            self.img_size, self.camera, shading="flat",
+            background_color=(1.0, 1.0, 1.0), z_clip=z_clip,
+            ambient_color=(0.7, 0.7, 0.7))
         _no_unknown(rc, "renderer config")
 
     # -- curriculum -------------------------------------------------------
@@ -325,16 +345,20 @@ class BlocksWorld:
                    mode="replicate")
         return x.permute(0, 2, 3, 1)
 
-    def _block_maps(self, params, phase: Phase):
+    def _block_maps(self, params, phase: Phase, synthetic=False):
         raw = torch.sigmoid(params["textures"])
+        if synthetic:
+            raw = self.statics.block_colors[:, None, None, :].expand(raw.shape)
         maps = self._decimate(raw, phase.decimate)
         pl, pr = self.txt_padding
         maps = torch.cat([maps[:, :, maps.shape[2] - pl:], maps, maps[:, :, :pr]],
                          dim=2)
         return self._place_in_atlas(maps, self.block_map_hw), raw
 
-    def _env_map(self, tex_logits, phase: Phase):
+    def _env_map(self, tex_logits, phase: Phase, synthetic=False):
         raw = torch.sigmoid(tex_logits)
+        if synthetic:
+            raw = torch.ones_like(raw)
         maps = self._decimate(raw, phase.decimate)
         return self._place_in_atlas(maps, self.env_map_hw), raw
 
@@ -351,25 +375,31 @@ class BlocksWorld:
             TextureAtlas(maps), torch.ones(F, device=self.device),
         )
 
-    def build_bkg(self, params, phase: Phase):
+    def build_bkg(self, params, phase: Phase, synthetic=False):
         st = self.statics
-        maps, raw = self._env_map(params["texture_bkg"], phase)
+        maps, raw = self._env_map(params["texture_bkg"], phase, synthetic)
         verts = self._world_transform(st.bkg_verts)
         return self._env_scene(verts, st.bkg_faces, st.bkg_uvs, maps), raw
 
-    def build_ground(self, params, phase: Phase):
+    def build_ground(self, params, phase: Phase, synthetic=False, reduced=False):
+        """The ground plane; ``reduced`` shrinks its extent from z_far to 3
+        (the exported ``mesh.obj``)."""
         st = self.statics
         Rg = rotation_6d_to_matrix(params["R_6d_ground"][0])
-        verts = st.ground_verts @ Rg + params["T_ground"][0]
+        verts = st.ground_verts
+        if reduced:
+            r = 3.0 / self.z_far
+            verts = verts * torch.tensor([r, 1.0, r], device=self.device)
+        verts = verts @ Rg + params["T_ground"][0]
         verts = self._world_transform(verts)
-        maps, raw = self._env_map(params["texture_ground"], phase)
+        maps, raw = self._env_map(params["texture_ground"], phase, synthetic)
         return self._env_scene(verts, st.ground_faces, st.ground_uvs, maps), raw
 
-    def build_env(self, params, phase: Phase):
+    def build_env(self, params, phase: Phase, synthetic=False):
         """Background dome + ground as one world-coordinate scene (the
         decoupled env pass, reference dbw.py:214), with their own atlas."""
-        bkg, braw = self.build_bkg(params, phase)
-        ground, graw = self.build_ground(params, phase)
+        bkg, braw = self.build_bkg(params, phase, synthetic)
+        ground, graw = self.build_ground(params, phase, synthetic)
         return concat_scenes([bkg, ground]), {"bkg": braw, "ground": graw}
 
     def block_sq_eps(self, params):
@@ -383,9 +413,10 @@ class BlocksWorld:
         return parametric_sq(st.sq_eta[None], st.sq_omega[None], eps1,
                              eps2) * self.ratio_block_scene
 
-    def build_blocks(self, params, phase: Phase, noise=None):
+    def build_blocks(self, params, phase: Phase, noise=None, synthetic=False):
         """Blocks as one static-shape MeshScene + aux for the losses.
-        ``noise``: (N,) standard-normal draw for the opacity noise."""
+        ``noise``: (N,) standard-normal draw for the opacity noise;
+        ``synthetic``: each block's maps are its palette color."""
         st = self.statics
         N = self.n_blocks
         S = torch.exp(params["S"]) + self.scale_min
@@ -412,7 +443,7 @@ class BlocksWorld:
         block_face_alpha = mask_f if phase.filter_transparent else alpha * mask_f
         faces_alpha = block_face_alpha.repeat_interleave(self.BNF)
 
-        maps, raw_maps = self._block_maps(params, phase)
+        maps, raw_maps = self._block_maps(params, phase, synthetic)
         V = verts.shape[1]
         dev = self.device
         ar = torch.arange(N, device=dev)
@@ -472,6 +503,54 @@ class BlocksWorld:
                                    row_range=row_range)[..., :3]
         aux["env_raw_maps"] = env_raws
         return rec, aux
+
+    def predict_synthetic(self, params, phase: Phase, R, T):
+        """Flat-lit synthetic-color render (B, H, W, 3) of the filtered
+        blocks (reference dbw.py:241-248), through the per-face-constant
+        ``render_faces_flat``."""
+        phase = replace(phase, filter_transparent=True)
+        blocks, _ = self.build_blocks(params, phase, synthetic=True)
+        return self.renderer_light.render_faces_flat(
+            blocks, R, T, self.synthetic_face_colors())[..., :3]
+
+    def synthetic_face_colors(self):
+        """(N * BNF, 3) per-face synthetic palette."""
+        return self.statics.block_colors.repeat_interleave(self.BNF, dim=0)
+
+    # -- inspection (host, eval, viz) --------------------------------------
+
+    def get_opacities(self, params):
+        """(N,) block opacities; with kill_blocks, dead blocks read 0."""
+        alpha = torch.sigmoid(params["alpha_logit"].detach())
+        if self.kill_blocks:
+            alpha = alpha * (alpha > 0.01)
+        return alpha
+
+    def get_nb_opaque_blocks(self, params):
+        return int((self.get_opacities(params) > 0.5).sum())
+
+    def get_scene_face_colors(self, params, filter_transparent=False, w_env=True):
+        """Per-face palette (F, 3) of the edge overlays: the env faces black
+        (left out without ``w_env``), then each block's color, black for
+        dead blocks (filtered at 0.5, or killed at 0.01)."""
+        colors = self.statics.block_colors
+        op = self.get_opacities(params)
+        if filter_transparent:
+            colors = torch.where((op > 0.5)[:, None], colors, torch.zeros_like(colors))
+        elif self.kill_blocks:
+            colors = torch.where((op > 0.01)[:, None], colors, torch.zeros_like(colors))
+        nfe = self.env_n_faces if w_env else 0
+        return torch.cat([torch.zeros((nfe, 3), device=self.device),
+                          colors.repeat_interleave(self.BNF, dim=0)])
+
+    def get_arranged_block_txt(self, params, ncol=5):
+        """The block textures as one grid image (rows of ncol maps)."""
+        maps = torch.sigmoid(params["textures"].detach())
+        ncol = min(ncol, len(maps))
+        nrow = max(len(maps) // ncol, 1)
+        rows = [torch.cat(list(maps[ncol * i:ncol * (i + 1)]), dim=1)
+                for i in range(nrow)]
+        return torch.cat(rows, dim=0)
 
     # -- losses -----------------------------------------------------------
 

@@ -49,17 +49,20 @@ def view_to_ndc(v_view, cam: Camera, eps=1e-8):
 
 def ndc_pixel_centers(image_size, device=None, row_range=None):
     """NDC x of each pixel column (W,) and y of each pixel row (H,), float32
-    (the CUDA selection kernel evaluates the same expression).
+    (the CUDA selection kernel evaluates the same expression, bit for bit).
 
     ``row_range=(row0, Hb)``: y of the Hb rows from row0 only, in the full
     image's coordinates, so a band's pixels get the full image's values
     bit for bit; rows past the image's last are allowed."""
     H, W = image_size
     s = min(H, W)
-    j = torch.arange(W, dtype=torch.float32, device=device)
-    if row_range is None:
-        i = torch.arange(H, dtype=torch.float32, device=device)
-    else:
-        row0, Hb = row_range
-        i = float(row0) + torch.arange(Hb, dtype=torch.float32, device=device)
-    return (W - 1.0 - 2.0 * j) / s, (H - 1.0 - 2.0 * i) / s
+    # float64, rounded once to float32: the correctly rounded float32
+    # quotient on every device, as the kernel's division gives it (on CUDA,
+    # PyTorch divides a tensor by a python scalar as a multiply by its
+    # reciprocal, which is off by an ulp at a quarter of the columns)
+    f64 = dict(dtype=torch.float64, device=device)
+    j = torch.arange(W, **f64)
+    i = torch.arange(H, **f64) if row_range is None else (
+        float(row_range[0]) + torch.arange(row_range[1], **f64))
+    return (((W - 1.0 - 2.0 * j) / s).to(torch.float32),
+            ((H - 1.0 - 2.0 * i) / s).to(torch.float32))

@@ -67,11 +67,12 @@ def _bary2d(x0, y0, x1, y1, x2, y2, px, py):
     return w0, w1, w2
 
 
-def alpha_math(res, px, py, vld, sigma, clip_inside):
-    """Coverage alpha (N,) from the residual (N, 8) [x0 y0 x1 y1 x2 y2 fa 0];
-    the differentiable part of the fragment math."""
-    x0, y0, x1, y1, x2, y2, fa = (res[:, i] for i in range(7))
-    zero = torch.zeros((), dtype=res.dtype, device=res.device)
+def signed_edge_dist2(xy, px, py):
+    """Signed squared NDC distance (N,) of the pixel centers (px, py) to the
+    nearest edge of the faces xy (N, 6) [x0 y0 x1 y1 x2 y2]: negative
+    inside the face."""
+    x0, y0, x1, y1, x2, y2 = (xy[:, i] for i in range(6))
+    zero = torch.zeros((), dtype=xy.dtype, device=xy.device)
     one = zero + 1.0
     w0, w1, w2 = _bary2d(x0, y0, x1, y1, x2, y2, px, py)
     inside = torch.minimum(torch.minimum(w0, w1), w2) >= 0.0
@@ -80,7 +81,15 @@ def alpha_math(res, px, py, vld, sigma, clip_inside):
                       _seg_d2(x1, y1, x2, y2, px, py, zero, one)),
         _seg_d2(x2, y2, x0, y0, px, py, zero, one),
     )
-    dists = torch.where(inside, -d2, d2)
+    return torch.where(inside, -d2, d2)
+
+
+def alpha_math(res, px, py, vld, sigma, clip_inside):
+    """Coverage alpha (N,) from the residual (N, 8) [x0 y0 x1 y1 x2 y2 fa 0];
+    the differentiable part of the fragment math."""
+    fa = res[:, 6]
+    zero = torch.zeros((), dtype=res.dtype, device=res.device)
+    dists = signed_edge_dist2(res[:, :6], px, py)
     if sigma == 0.0:
         a = (dists <= 0.0).to(res.dtype)
     else:

@@ -1,5 +1,5 @@
 """Static-topology scene mesh and texture atlas (PyTorch port of
-dbw_tpu/render/meshes.py, training path).
+dbw_tpu/render/meshes.py: the training path and ``face_normals``).
 
 A scene is a fixed set of flat tensors; dead blocks are collapsed in place,
 never removed, so shapes never change during optimization.
@@ -49,6 +49,13 @@ def concat_scenes(scenes: Sequence[MeshScene]) -> MeshScene:
     cat = {k: torch.cat(v, 0) for k, v in parts.items()}
     cat["atlas"] = TextureAtlas(cat["atlas"])
     return MeshScene(**cat)
+
+
+def face_normals(verts, faces):
+    """Per-face unit normals (F, 3) (flat shading)."""
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
 def quad_forward(maps_flat, id00, wx, wy, TW):

@@ -11,6 +11,9 @@ runs ``rasterize_plain`` for CPU tensors. ``hard=True`` (blur statically 0,
 the env pass) launches the kernel's specialization without edge-distance
 coverage; its plain twin is ``rasterize_plain`` at blur 0.
 
+A supersampled config (the viz renderers) counts its hard launches under
+``K1_select_hard_ss``.
+
 ``row_range=(row0, Hb)`` selects for the Hb-row band from image row row0
 only: (B, Hb, W, K), bitwise the full raster's rows [row0, row0 + Hb). The
 pixel NDC stays in full-image coordinates, and a band may overhang the
@@ -41,6 +44,9 @@ class RasterConfig(NamedTuple):
     perspective_correct: bool = True
     clip_barycentric: bool = True
     row_chunk: int = 10
+    # the supersampling factor that image_size includes (the viz renderers'
+    # 4); its kernel launches are counted apart from the training passes'
+    supersample: int = 1
 
 
 class FaceGeom(NamedTuple):
@@ -185,8 +191,11 @@ def rasterize_cuda(packed, blur, cfg: RasterConfig, hard=False, row_range=None):
                          f"blur={blur}, hard={hard}")
     p = kernels.check(packed, torch.float32, "packed", align=16)
     out = torch.empty((B, Hb, W, K), dtype=torch.int32, device=packed.device)
+    counter = "K1_select_hard" if hard else "K1_select"
+    if hard and cfg.supersample > 1:
+        counter = "K1_select_hard_ss"
     kernels.launch(
-        "dbw_select", "K1_select_hard" if hard else "K1_select", p, B, F, H, W,
+        "dbw_select", counter, p, B, F, H, W,
         row0, Hb, K, blur, float(max(blur, 0.0)) ** 0.5, float(cfg.z_clip),
         int(cfg.perspective_correct), int(cfg.clip_barycentric), int(hard),
         out.data_ptr(),

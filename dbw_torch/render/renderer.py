@@ -17,9 +17,16 @@ of B * H * W * K fragments, fragment n = ((b * H + row) * W + col) * K + k.
 ``row_range=(row0, Hb)`` renders the Hb-row band from image row row0 only
 (the pixel-band entry point of the JAX package's sharded trainers), bitwise
 selecting as the full render does, with all pixel math in full-image
-coordinates. Bands take raw shading, the only shading ported.
+coordinates.
 
-Lit shading, the viz renderers and ``render_faces_flat`` are not ported yet.
+The viz renderers (``make_viz_renderer``) render hard at ``supersample``
+times the image size through the env branch and average-pool back; their
+K1-hard launches count as ``K1_select_hard_ss``. ``render_faces_flat``
+(per-face constant colors under a flat light) and the wireframe overlays
+``render_edges``/``draw_edges`` ride the same supersampled hard raster.
+Lit shading of textured renders is not ported: ``render`` takes raw
+shading only, and a ``shading="flat"`` renderer serves
+``render_faces_flat``.
 """
 
 from __future__ import annotations
@@ -35,11 +42,17 @@ from .blend import layered_blend
 from .cameras import Camera, ndc_pixel_centers
 from .fragment import (FragFlags, alpha_math, bary_uv, fused_fragment_shade,
                        residual, texel_coords)
-from .meshes import MeshScene, sample_quad, sample_quad_diff
+from .interpolate import edge_dists_flat
+from .meshes import MeshScene, face_normals, sample_quad, sample_quad_diff
 from .rasterize import RasterConfig, project_faces, rasterize
+from .shading import _light
 
 # blur_radius = log(1/1e-4 - 1) * sigma (reference renderer.py:51)
 BLUR_RADIUS_FACTOR = math.log(1.0 / 1e-4 - 1.0)
+# camera-frame light of the flat-lit renders (reference renderer.py:21)
+DIRECTION_LIGHT = (1.0, 0.25, -1.0)
+SHADING_TYPES = ("raw", "flat")
+LIGHT_TYPES = ("ambient", "directional", "point")
 
 
 def f32(v):
@@ -57,21 +70,33 @@ class RendererConfig(NamedTuple):
     detach_bary: bool = True
     shading: str = "raw"
     ambient_color: Optional[Tuple[float, float, float]] = None
+    diffuse_color: Tuple[float, float, float] = (0.4, 0.4, 0.4)
+    light_direction: Tuple[float, float, float] = DIRECTION_LIGHT
+    light_type: str = "directional"
+    light_location: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     z_clip: float = 1e-3
+    supersample: int = 1
 
     def raster_config(self):
-        return RasterConfig(image_size=tuple(self.image_size),
+        H, W = self.image_size
+        s = self.supersample
+        return RasterConfig(image_size=(H * s, W * s),
                             faces_per_pixel=self.faces_per_pixel,
-                            z_clip=self.z_clip)
+                            z_clip=self.z_clip, supersample=s)
 
 
 class Renderer:
     """Stateless given (config, camera)."""
 
     def __init__(self, config: RendererConfig, camera: Camera):
-        if config.shading != "raw":
+        flat_ok = float(config.sigma) == 0.0 and config.faces_per_pixel == 1
+        if config.shading not in SHADING_TYPES or (config.shading == "flat"
+                                                   and not flat_ok):
             raise NotImplementedError(
-                f"shading_type {config.shading!r}: only 'raw' is ported")
+                f"shading_type {config.shading!r}: only 'raw' is ported, and "
+                "'flat' for the hard K=1 renderer of render_faces_flat")
+        if config.light_type not in LIGHT_TYPES:
+            raise NotImplementedError(f"unknown light type: {config.light_type!r}")
         self.config = config
         self.camera = camera
 
@@ -85,24 +110,31 @@ class Renderer:
         sigma of 0 (the env renderer) the selection takes its hard
         specialization, as the JAX package decides it."""
         cfg = self.config
+        if cfg.shading != "raw":
+            raise NotImplementedError(
+                f"render: shading_type {cfg.shading!r} is not ported (a flat "
+                "renderer serves render_faces_flat only)")
+        if row_range is not None and cfg.supersample > 1:
+            raise ValueError("row_range: training renderers only (no supersampling)")
         hard = sigma is None and float(cfg.sigma) == 0.0
         sigma, blur = self.sigma_blur(sigma)
         geom = project_faces(scene.verts, scene.faces, R, T, self.camera,
                              z_clip=cfg.z_clip)
         p2f = rasterize(geom, blur, cfg.raster_config(), hard=hard,
                         row_range=row_range)
-        return self.shade(scene, geom, p2f, sigma,
-                          row0=0 if row_range is None else int(row_range[0]))
+        img = self.shade(scene, geom, p2f, sigma,
+                         row0=0 if row_range is None else int(row_range[0]))
+        return _avg_pool_2d(img, cfg.supersample)
 
     def shade(self, scene: MeshScene, geom, p2f, sigma, row0=0):
         """Fragment stage + texture sample + blend for selected faces p2f
-        (B, Hb, W, K) of the image rows from ``row0``."""
+        (B, Hb, W, K) of the (supersampled) image rows from ``row0``."""
         cfg = self.config
         B, Hb, W, K = p2f.shape
         maps = scene.atlas.maps
         M, TH, TW = maps.shape[:3]
         maps_flat = maps.reshape(M * TH * TW, 3)
-        size = tuple(cfg.image_size)
+        size = cfg.raster_config().image_size
         if cfg.detach_bary:
             table, ids, vld, px, py = fragment_streams(scene, geom, p2f,
                                                        image_size=size, row0=row0)
@@ -129,6 +161,71 @@ class Renderer:
                                               device=colors.device)
         return layered_blend(colors.reshape(B, Hb, W, K, 3),
                              alpha.reshape(B, Hb, W, K), cfg.background_color)
+
+    def _hard_select(self, scene: MeshScene, R, T):
+        """Projected faces and the front face per (supersampled) pixel:
+        (geom, p2f (B, Hs, Ws, 1)), by the hard K=1 selection."""
+        cfg = self.config
+        rcfg = cfg.raster_config()._replace(faces_per_pixel=1)
+        geom = project_faces(scene.verts, scene.faces, R, T, self.camera,
+                             z_clip=cfg.z_clip)
+        return geom, rasterize(geom, 0.0, rcfg, hard=True)
+
+    def render_faces_flat(self, scene: MeshScene, R, T, face_colors):
+        """Hard flat-lit render with per-face constant colors (F, 3): one
+        K=1 raster and two table reads a pixel. Exact for scenes whose maps
+        are constant per block (the synthetic-color renders). Needs a flat,
+        hard (sigma 0) renderer. -> RGBA (B, H, W, 4)."""
+        cfg = self.config
+        if cfg.shading != "flat" or float(cfg.sigma) != 0.0:
+            raise ValueError("render_faces_flat: hard flat-lit viz renderers only")
+        geom, p2f = self._hard_select(scene, R, T)
+        f = p2f[..., 0].long()                            # (B, Hs, Ws)
+        dev, dt = scene.verts.device, scene.verts.dtype
+        fn = face_normals(scene.verts, scene.faces)       # (F, 3)
+        cent = scene.verts[scene.faces].mean(dim=1)       # (F, 3)
+        ambient = cfg.ambient_color or (1.0, 1.0, 1.0)
+        face_colors = torch.as_tensor(face_colors, dtype=dt, device=dev)
+        bg = torch.as_tensor(cfg.background_color, dtype=dt, device=dev)
+        safe = f.clamp(min=0)
+        a = (f >= 0).to(dt) * scene.faces_alpha[safe]     # (B, Hs, Ws)
+        tab = torch.stack([
+            face_colors * _light(fn, cent, R[b], cfg.light_type, cfg.light_direction,
+                                 cfg.light_location, ambient, cfg.diffuse_color)
+            for b in range(R.shape[0])])                  # (B, F, 3)
+        wrgb = torch.gather(tab, 1, safe.reshape(len(safe), -1, 1).expand(-1, -1, 3))
+        wrgb = wrgb.reshape(*safe.shape, 3) * a[..., None]
+        # pool before the background blend: the blend is affine in
+        # (rgb * a, a), so this equals pooling the blended image
+        wrgb = _avg_pool_2d(wrgb, cfg.supersample)
+        a = _avg_pool_2d(a[..., None], cfg.supersample)
+        return torch.cat([wrgb + (1.0 - a) * bg, a], dim=-1)
+
+    def render_edges(self, scene: MeshScene, R, T, linewidth=1.0):
+        """Wireframe mask and front face id at the supersampled size:
+        (mask (B, Hs, Ws) float, pix2face (B, Hs, Ws) int32)."""
+        cfg = self.config
+        geom, p2f = self._hard_select(scene, R, T)
+        B, Hs, Ws, _ = p2f.shape
+        s = min(Hs, Ws) / cfg.supersample
+        thresh = (linewidth * cfg.supersample * 2.0 / s) ** 2
+        dists, valid = edge_dists_flat(p2f, geom)
+        mask = ((-dists < thresh) & valid).to(torch.float32)
+        return mask.reshape(B, Hs, Ws), p2f[..., 0]
+
+    def draw_edges(self, imgs, scene: MeshScene, R, T, colors, linewidth=1.0):
+        """Overlay the wireframe (antialiased by the supersampling) on imgs
+        (B, H, W, 3); colors: per-face (F, 3) or one (3,) color."""
+        cfg = self.config
+        mask, p2f = self.render_edges(scene, R, T, linewidth)
+        colors = torch.as_tensor(colors, dtype=torch.float32, device=mask.device)
+        if colors.ndim == 2:
+            face_img = colors[p2f.long().clamp(min=0)]
+        else:
+            face_img = colors.expand(mask.shape + (3,))
+        mask = _avg_pool_2d(mask[..., None], cfg.supersample)
+        face_img = _avg_pool_2d(face_img, cfg.supersample)
+        return imgs * (1.0 - mask) + mask * face_img
 
 
 def fragment_streams(scene: MeshScene, geom, p2f, detach_z=True,
@@ -170,6 +267,14 @@ def fragment_streams(scene: MeshScene, geom, p2f, detach_z=True,
     return table, ids.to(torch.int32).contiguous(), vld, px, py
 
 
+def _avg_pool_2d(img, k):
+    """(B, H*k, W*k, C) -> (B, H, W, C) mean over each k x k block."""
+    if k == 1:
+        return img
+    B, Hs, Ws, C = img.shape
+    return img.reshape(B, Hs // k, k, Ws // k, k, C).mean(dim=(2, 4))
+
+
 def make_train_renderer(image_size, camera, faces_per_pixel=10, sigma=1e-4,
                         detach_bary=True, **kw):
     """The soft training renderer (reference dbw.py:132 + configs)."""
@@ -191,3 +296,15 @@ def make_env_renderer(image_size, camera, **kw):
         camera,
     )
 
+
+def make_viz_renderer(image_size, camera, supersample=4, shading="raw",
+                      background_color=(0.0, 0.0, 0.0), **kw):
+    """Antialiased hard renderer for visualization (reference
+    renderer.py:56-60): 4x supersampling, K=1, sigma 0, uv-differentiable
+    shading, then average pooling."""
+    return Renderer(
+        RendererConfig(image_size=tuple(image_size), faces_per_pixel=1,
+                       sigma=0.0, detach_bary=False, supersample=supersample,
+                       shading=shading, background_color=background_color, **kw),
+        camera,
+    )

@@ -75,13 +75,13 @@ class _Unpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def adam_state_to_jax(optimizer, params: dict) -> ScaleByAdamState:
-    """torch Adam state of ``params`` ({name: leaf}) -> optax's layout."""
+def _adam_states_to_jax(states: dict, params: dict) -> ScaleByAdamState:
+    """{name: torch Adam state of the leaf} -> optax's layout (a leaf with
+    no state yet gets zeros at step 0)."""
     mu, nu, steps = {}, {}, set()
     for k in PARAM_NAMES:
-        p = params[k]
-        st = optimizer.state.get(p, {})
-        zero = np.zeros(tuple(p.shape), np.float32)
+        st = states[k]
+        zero = np.zeros(tuple(params[k].shape), np.float32)
         steps.add(int(st["step"]) if "step" in st else 0)
         mu[k] = st["exp_avg"].detach().cpu().numpy() if "exp_avg" in st else zero
         nu[k] = (st["exp_avg_sq"].detach().cpu().numpy() if "exp_avg_sq" in st
@@ -106,23 +106,46 @@ def adam_state_from_jax(state: ScaleByAdamState, optimizer, params: dict):
         }
 
 
-def save_checkpoint(path, params: dict, optimizer, epoch, batch,
-                    model_name="dbw", model_kwargs=None):
-    """Write ``model.pkl``; ``optimizer`` may be None (no optimizer state)."""
+def snapshot(params: dict, optimizer=None):
+    """A detached copy (on the parameters' device) of the parameters and of
+    ``optimizer``'s Adam state, for ``write_snapshot`` to write later while
+    training goes on."""
+    with torch.no_grad():
+        copy = {k: params[k].detach().clone() for k in PARAM_NAMES}
+        states = None
+        if optimizer is not None:
+            states = {k: {f: v.detach().clone() if torch.is_tensor(v) else v
+                          for f, v in optimizer.state.get(params[k], {}).items()}
+                      for k in PARAM_NAMES}
+    return copy, states
+
+
+def write_snapshot(path, snap, epoch, batch, model_name="dbw", model_kwargs=None):
+    """Write ``model.pkl`` from a ``snapshot``."""
+    copy, states = snap
     state = {
         "epoch": int(epoch),
         "batch": int(batch),
         "model_name": model_name,
         "model_kwargs": model_kwargs or {},
-        "model_state": scene_params_to_numpy(params),
-        "optimizer_state": (None if optimizer is None
-                            else adam_state_to_jax(optimizer, params)),
+        "model_state": scene_params_to_numpy(copy),
+        "optimizer_state": (None if states is None
+                            else _adam_states_to_jax(states, copy)),
     }
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
         _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
+    tmp.replace(path)  # a reader never sees a half-written file
     return path
+
+
+def save_checkpoint(path, params: dict, optimizer, epoch, batch,
+                    model_name="dbw", model_kwargs=None):
+    """Write ``model.pkl``; ``optimizer`` may be None (no optimizer state)."""
+    return write_snapshot(path, snapshot(params, optimizer), epoch, batch,
+                          model_name=model_name, model_kwargs=model_kwargs)
 
 
 def load_checkpoint(path):

@@ -31,3 +31,8 @@ def load_yaml(path, default_path=None):
             cfg = yaml.load(fp, Loader=yaml.FullLoader)
     update_recursive(cfg, cfg_s)
     return cfg
+
+
+def dump_yaml(cfg, path):
+    with open(path, mode="w") as f:
+        return yaml.safe_dump(cfg, f)

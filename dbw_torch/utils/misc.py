@@ -1,0 +1,59 @@
+"""Paths and deterministic host seeding (a copy of the parts of
+dbw_tpu/utils/misc.py that the Trainer uses).
+
+``use_seed`` saves and restores the host RNG state (python + numpy) around
+a block; device draws come from explicitly seeded ``torch.Generator``s, so
+only host-side sampling (the viz-sample choice, the GT point subset) needs
+it."""
+
+import random
+from functools import wraps
+from pathlib import Path
+
+import numpy as np
+
+
+def path_exists(path):
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"{path.absolute()} does not exist")
+    return path
+
+
+def path_mkdir(path):
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+class use_seed:
+    """Context manager / decorator seeding python+numpy RNG and restoring
+    the previous state on exit. As a decorator, the seed may also come as
+    the ``seed=`` keyword of the call."""
+
+    def __init__(self, seed=None):
+        if seed is not None and not (isinstance(seed, int) and seed >= 0):
+            raise ValueError(f"use_seed: need an int >= 0, got {seed!r}")
+        self.seed = seed
+
+    def __enter__(self):
+        if self.seed is not None:
+            self.rand_state = random.getstate()
+            self.np_state = np.random.get_state()
+            random.seed(self.seed)
+            np.random.seed(self.seed)
+        return self
+
+    def __exit__(self, typ, val, tb):
+        if self.seed is not None:
+            random.setstate(self.rand_state)
+            np.random.set_state(self.np_state)
+
+    def __call__(self, f):
+        @wraps(f)
+        def wrapper(*args, **kw):
+            seed = self.seed if self.seed is not None else kw.pop("seed", None)
+            with use_seed(seed):
+                return f(*args, **kw)
+
+        return wrapper

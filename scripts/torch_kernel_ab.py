@@ -12,7 +12,10 @@ views (the flagship shapes of chip_smoke.py): K1 soft at the blocks pass's
 and the joint scene's faces, K1 hard at the env pass's, K2 and K3 at the
 blocks pass's, the joint scene's and the band path's fragments (the middle
 band of 3), K4 at the blocks pass's, env pass's and joint scene's
-fragments, and K5 at the env pass's rows. Each version gets its own
+fragments, and K5 at the env pass's rows; then the flagship step itself
+(chip_smoke.py's run_steps: 10 steps of forward, backward and Adam, the
+median of steps 1-9 on the host clock around synchronized steps, under the
+key "step [decoupled]"). Each version gets its own
 inputs where its signature differs: a K3 that takes a residual gets the
 one its K2 saved, one that takes the table gets the table. Both checkouts
 are timed by this checkout's chip_smoke.py: a time is the median of 5
@@ -140,6 +143,15 @@ def child(root):
         time("K5_small_scatter [env pass]",
              lambda: sc.small_table_scatter_add_cuda(eidx, upd, etable.shape[0]),
              "small_scatter_kernel")
+    # the flagship step, by the checkout's own run_steps (stdout: its
+    # per-step lines come before this function's JSON line)
+    from dbw_torch.train.optimizer import create_optimizer
+
+    step_params = model.init_params(seed=0)
+    opt = create_optimizer(cfg, step_params)
+    _, times = cs.run_steps("step", model, step_params, opt, cs.N_STEPS,
+                            getattr(cs, "STEP_KERNELS", tuple(cs.SOURCES)), device)
+    out["step [decoupled]"] = 1e3 * float(sorted(times[1:])[len(times[1:]) // 2])
     print(json.dumps({"root": str(root), "ms": out, "device_ms": dev,
                       "timer": "CUDA events around 20 calls, median of 5; "
                                "device_ms: torch.profiler, per launch"}), flush=True)

@@ -22,7 +22,14 @@ MODULES = [
     "dbw_torch.models.dbw", "dbw_torch.train.optimizer",
     "dbw_torch.train.scheduler", "dbw_torch.train.checkpoint",
     "dbw_torch.data", "dbw_torch.data.base", "dbw_torch.data.synthetic",
-    "dbw_torch.utils.config", "chip_smoke",
+    "dbw_torch.utils.config", "dbw_torch.utils.logger", "dbw_torch.utils.misc",
+    "dbw_torch.utils.path", "dbw_torch.utils.colors", "dbw_torch.utils.image",
+    "dbw_torch.utils.obj_io", "dbw_torch.utils.html", "dbw_torch.utils.plot",
+    "dbw_torch.utils.visualizer", "dbw_torch.losses.ssim",
+    "dbw_torch.render.shading", "dbw_torch.render.interpolate",
+    "dbw_torch.render.trajectory", "dbw_torch.eval.metrics",
+    "dbw_torch.eval.export", "dbw_torch.eval.quant", "dbw_torch.eval.quali",
+    "dbw_torch.eval.full", "dbw_torch.train.trainer", "chip_smoke",
 ]
 BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
        "('jax', 'jaxlib', 'optax', 'dbw_tpu'))")
