@@ -16,11 +16,13 @@ Phases, one line each (or a few):
    its operations over the float32 rate) and, for K4 and K5, the time of
    one PyTorch ``index_add_`` that computes the same sums;
 4. main path: configs/synthetic/dtu_shaped.yml as shipped (decoupled env
-   pass, 300x400, 4 views, K=10, 10 blocks, 256 texels) takes 10 Adam
-   steps; every kernel must launch in every step. Then a few steps split by
-   CUDA events into env pass, blocks pass, losses, backward and Adam, and
-   a torch.profiler trace of 3 steps: the device's idle share and where
-   its time goes;
+   pass, 300x400, 4 views, K=10, 10 blocks, 256 texels, the VGG16
+   features in their bfloat16 default) takes 10 Adam steps; every kernel
+   must launch in every step. The same step with float32 features, timed
+   in the same call, and the card's bfloat16 features held against its
+   float32 ones. Then a few steps split by CUDA events into env pass,
+   blocks pass, losses, backward and Adam, and a torch.profiler trace of 3
+   steps: the device's idle share and where its time goes;
 5. joint path: the same config with decouple_rendering=False, 3 steps;
 5b. band path: the config's predict in 2 row bands (0-149, 150-299) and in
    3 bands of 100 rows against the full predict; K1's band output bitwise
@@ -35,7 +37,8 @@ Phases, one line each (or a few):
    loader's order, the scheduler's LRs), then a model.pkl round trip that
    must reproduce the next step;
 7. reference: a small model run on the card agrees with the same model run
-   on the CPU (plain versions), losses and gradients, decoupled and joint;
+   on the CPU (plain versions), losses and gradients, decoupled and joint,
+   both with float32 VGG features;
 8. trainer: dbw_torch.train.trainer.Trainer on the shipped config at full
    width (only n_epoches, the stat intervals and the final eval's video
    knobs overridden) in a temporary run directory: every artifact of the
@@ -44,7 +47,20 @@ Phases, one line each (or a few):
    supersampled hard selection of the viz and eval renders, K1-hard at 4x,
    counted on its own); its throughput, the time of one val interval and
    of the final eval. Phase 3 holds K1-hard at 4x (1200x1600, the scene's
-   1,248 faces and the blocks' 800) bitwise against its plain twin.
+   1,248 faces and the blocks' 800) bitwise against its plain twin;
+9. dtu: a DTU scan written into a temporary directory in the IDR layout at
+   DTU's shapes (49 views of the port's synthetic scene rendered on the
+   card as 300x400 PNGs, cameras.npz at the raw 1200x1600 with a
+   millimetre scale matrix, ~1 M GT points in mm, an ObsMask grid and a
+   ground plane), then the Trainer on configs/dtu/scan24.yml at full width
+   (only dataset.root, n_epoches, the stat intervals, the final eval's
+   video knobs and the blocks' initial opacity overridden) through the
+   final eval's DTU branch: every artifact, dtu_scores.tsv (acc comp avg,
+   finite), every kernel launched; its steps/s, the final eval's seconds
+   and the protocol's split;
+10. mesh: MeshEvaluator at its real size (100,000 points, 100 ICP steps,
+   normals) on the card on phase 8's exported block mesh and synthetic GT;
+   the card's 1-NN against the CPU's on a 20,000 x 20,000 cloud.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -106,6 +122,34 @@ STEP_KERNELS = tuple(k for k in SOURCES if k != "K1_select_hard_ss")
 # more; the final eval renders trajectory videos of 10 frames for 1 view
 TRAINER_OVERRIDES = dict(n_epoches=16, train_stat_interval=25, val_stat_interval=50,
                          eval=dict(n_traj_videos=1, NV=10))
+# the dtu phase: configs/dtu/scan24.yml (over its default.yml) with these
+# training keys and dataset.root overridden; 3 epochs of 13 batches are 39
+# steps, the val interval fires at iteration 26 (inside a group of 5, so at
+# 30). One model key too: the final eval scores the blocks whose opacity
+# passes 0.5, and from the shipped 0.5 the parsimony loss takes every
+# block below it in the first epochs (r5's first block crossed 0.5 at
+# epoch 8), which would leave the protocol an empty mesh
+DTU_CONFIG = ROOT / "configs" / "dtu" / "scan24.yml"
+DTU_OVERRIDES = dict(n_epoches=3, train_stat_interval=13, val_stat_interval=26,
+                     eval=dict(n_traj_videos=1, NV=10))
+DTU_MESH_OVERRIDES = dict(opacity_init=0.9)
+# the written scan: a millimetre world (DTU's scale matrices scale by ~200
+# and move the origin by a few hundred mm), ~1 M GT points
+DTU_SCALE_MAT = np.array([[200.0, 0, 0, -10.0], [0, 200.0, 0, 35.0],
+                          [0, 0, 200.0, 620.0], [0, 0, 0, 1]])
+DTU_GT_POINTS = 1_000_000
+# the card's bfloat16 VGG16 features against its float32 ones, per slice
+# output: the largest difference within 3e-2 of the largest feature and the
+# mean within 2e-2 of the mean feature (bfloat16 keeps 8 bits, 3.9e-3,
+# through 13 layers; the CPU shows 8e-3 and 7e-3)
+VGG_BF16_MAX_REL = 3e-2
+VGG_BF16_MEAN_REL = 2e-2
+N_F32_STEPS = 6
+# the 1-NN of phase 10: a 20,000 x 20,000 cloud; a point whose two nearest
+# squared distances differ by at most 1e-5 of the expansion's scale
+# (|x|^2 + |y|^2) is a near-tie, where float32 may pick either
+NN_POINTS = 20_000
+NN_TIE_REL = 1e-5
 # kernels of the joint-rendering path (no env pass)
 JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad")
 # kernels of the backward, held against their plain twins in the band phase
@@ -192,9 +236,11 @@ def load_cfg():
 
 
 def make_model(cfg, device, img_size=None, mesh=None, renderer=None,
-               rend_optim=None, K=K_NDC):
+               rend_optim=None, K=K_NDC, vgg_dtype=None):
     """BlocksWorld from the config's model section (+ overrides of its mesh,
-    renderer and rend_optim keys) with the flagship camera."""
+    renderer and rend_optim keys) with the flagship camera; VGG16 features
+    in ``vgg_dtype`` (None: the device's default)."""
+    from dbw_torch.losses.vgg import VGG16Features
     from dbw_torch.models.dbw import BlocksWorld
 
     m = copy.deepcopy(cfg["model"])
@@ -202,7 +248,12 @@ def make_model(cfg, device, img_size=None, mesh=None, renderer=None,
     m["mesh"].update(mesh or {})
     m["renderer"].update(renderer or {})
     m["rend_optim"].update(rend_optim or {})
-    model = BlocksWorld(img_size or IMG_SIZE, device=device, **m)
+    vgg = None
+    if vgg_dtype is not None:
+        vgg = VGG16Features.from_env_or_random(
+            seed=m.get("loss", {}).get("vgg_filter_seed", 0),
+            path=m.get("loss", {}).get("vgg_weights"), device=device, dtype=vgg_dtype)
+    model = BlocksWorld(img_size or IMG_SIZE, device=device, vgg=vgg, **m)
     model.set_camera(K)
     return model
 
@@ -639,11 +690,47 @@ def phase_main(cfg, device):
     opt = create_optimizer(cfg, params)
     say("main", "optimizer: Adam, lrs " + ", ".join(
         f"{g['name']} {g['lr']}" for g in opt.param_groups))
-    launches, _ = run_steps("main", model, params, opt, N_STEPS, STEP_KERNELS,
-                            device)
+    launches, times = run_steps("main", model, params, opt, N_STEPS, STEP_KERNELS,
+                                device)
+    vgg = vgg_dtype_check(cfg, model, times, device)
     split_step(model, params, opt, device)
     profile_steps(model, params, opt, device)
-    return launches
+    return launches, vgg
+
+
+def vgg_dtype_check(cfg, model, bf16_times, device):
+    """The main step with float32 VGG16 features (N_F32_STEPS steps) beside
+    the bfloat16 default's in this call, and the card's bfloat16 features
+    against its float32 ones on the LPIPS input of 4 random views."""
+    from dbw_torch.losses.vgg import _LPIPS_SCALE, _LPIPS_SHIFT
+    from dbw_torch.train.optimizer import create_optimizer
+
+    m32 = make_model(cfg, device, vgg_dtype=torch.float32)
+    p32 = m32.init_params(seed=0)
+    _, f32_times = run_steps("main f32", m32, p32, create_optimizer(cfg, p32),
+                             N_F32_STEPS, STEP_KERNELS, device)
+    vb, vf = model.perceptual_loss.vgg, m32.perceptual_loss.vgg
+    x = np.random.default_rng(5).random((N_VIEWS,) + IMG_SIZE + (3,), np.float32)
+    x = torch.from_numpy((x * 2 - 1 - _LPIPS_SHIFT) / _LPIPS_SCALE).to(device)
+    with torch.no_grad():
+        gaps = [(float((b - f).abs().max() / f.abs().max()),
+                 float((b - f).abs().mean() / f.abs().mean()))
+                for b, f in zip(vb(x, 5), vf(x, 5))]
+    ok = (vb.dtype == torch.bfloat16 and vf.dtype == torch.float32
+          and all(a <= VGG_BF16_MAX_REL and m <= VGG_BF16_MEAN_REL for a, m in gaps))
+    out = dict(bf16_step_ms=1e3 * float(np.median(bf16_times[1:])),
+               f32_step_ms=1e3 * float(np.median(f32_times[1:])),
+               feature_gaps=gaps)
+    say("vgg", f"the step with {vb.dtype} features (the default on the card) "
+        f"{out['bf16_step_ms']:.2f} ms (median of steps 1-{N_STEPS - 1}), with "
+        f"{vf.dtype} features {out['f32_step_ms']:.2f} ms (median of steps "
+        f"1-{N_F32_STEPS - 1}), same call; bfloat16 vs float32 features per slice "
+        "(max |d|/max|f32|, mean |d|/mean|f32|): "
+        + ", ".join(f"{a:.3g}/{m:.3g}" for a, m in gaps)
+        + f" (tolerances {VGG_BF16_MAX_REL}, {VGG_BF16_MEAN_REL})")
+    if not ok:
+        raise SystemExit("vgg: the bfloat16 features disagree with the float32 ones")
+    return out
 
 
 # device kernels by family, matched on their names
@@ -803,7 +890,9 @@ def check_band_selection(label, packed, blur, rcfg, hard):
 def band_case(cfg, device):
     """The band phase's model and seeded inputs: a namespace of model,
     params, phase, R, T, noise, imgs and ou (the overlap draws)."""
-    model = make_model(cfg, device)
+    # float32 features: the band checks hold the band entry points and the
+    # kernels, whose differences bfloat16 rounding would magnify
+    model = make_model(cfg, device, vgg_dtype=torch.float32)
     R, T = cameras(N_VIEWS, device)
     gen = torch.Generator(device=device).manual_seed(4)
     noise = torch.randn((model.n_blocks,), generator=gen, device=device)
@@ -1052,8 +1141,11 @@ def reference_step(cfg, device, decouple):
 
     small = dict(mesh=dict(n_blocks=3, txt_size=32, T_range=[0.2, 0.2, 0.2]),
                  renderer=dict(faces_per_pixel=5))
+    # float32 features on both devices: the phase holds the render and the
+    # kernels, not the features' dtype
     model = make_model(cfg, device, img_size=(48, 64), **small,
-                       rend_optim=dict(decouple_rendering=decouple))
+                       rend_optim=dict(decouple_rendering=decouple),
+                       vgg_dtype=torch.float32)
     params = scene_params_from_numpy(model.init_params_numpy(0), device)
     rng = np.random.default_rng(2)
     imgs = torch.from_numpy(rng.random((2, 48, 64, 3), np.float32)).to(device)
@@ -1075,8 +1167,9 @@ def grad_gap(ga, gb):
 
 def phase_reference(cfg, device):
     """A small model on the card (kernels) against the same model on the CPU
-    (plain versions): losses rtol 1e-4, gradients 1e-3 of each leaf's max;
-    decoupled (as configured) and joint."""
+    (plain versions), both with float32 VGG features: losses rtol 1e-4,
+    gradients 1e-3 of each leaf's max; decoupled (as configured) and
+    joint."""
     for decouple in (True, False):
         (lg, gg), (lc, gc) = (reference_step(cfg, d, decouple) for d in (device, "cpu"))
         worst_l = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
@@ -1242,12 +1335,202 @@ def phase_trainer(device):
         not_launched = [k for k in SOURCES if not launches[k]]
         if not ok or not_launched:
             raise SystemExit(f"trainer phase failed (kernels not launched: {not_launched})")
+        mesh = export_scored_mesh(tr.model, tr.params) + (np.asarray(tr.dataset.pc_gt),)
     numbers = dict(steps_per_s=n_steps / (t_train[0] - t0),
                    steady_steps_per_s=1.0 / (views_per_step * steady),
                    val_interval_ms=1e3 * float(np.median(spans["val"]) + np.median(
                        spans["viz"][1:-1]) + np.median(spans["save"][:-1])),
                    quant_s=spans["quant"][0], quali_s=spans["quali"][0])
-    return launches, viz_ss[1], eval_ss[0], numbers
+    return launches, viz_ss[1], eval_ss[0], numbers, mesh
+
+
+def export_scored_mesh(model, params):
+    """The run's block mesh as the mesh scorer exports it (the blocks that
+    pass the eval's opacity filter); all blocks when none passes, so that
+    the mesh phase still has a mesh. -> (verts, faces, label)."""
+    from dbw_torch.eval.export import export_blocks_mesh
+
+    verts, faces = export_blocks_mesh(model, params, filter_transparent=True)
+    if len(faces):
+        return verts, faces, "the blocks that pass the eval filter"
+    verts, faces = export_blocks_mesh(model, params, filter_transparent=False)
+    return verts, faces, "every block (none passes the eval filter)"
+
+
+def write_dtu_scan(root, device):
+    """scan24 in the IDR layout under ``root``: 49 views of the port's
+    synthetic scene rendered on the card at IMG_SIZE, cameras.npz at DTU's
+    raw 1200x1600 with DTU_SCALE_MAT, DTU_GT_POINTS GT points in mm, an
+    all-observed ObsMask grid of at most 32 MB and a ground plane below."""
+    from dbw_torch.data.scan_writer import write_idr_scan
+    from dbw_torch.data.synthetic import make_synthetic_scene, sample_gt_points
+
+    t0 = time.perf_counter()
+    ds, model, params = make_synthetic_scene(IMG_SIZE, n_views=49, seed=3, device=device)
+    with torch.no_grad():
+        pts = sample_gt_points(model, params, n_points=DTU_GT_POINTS, seed=1)
+    write_idr_scan(root, 24, ds.imgs, ds.K[0], ds.R, ds.T, DTU_SCALE_MAT,
+                   points=pts.cpu().numpy())
+    obs = root / "ObsMask" / "ObsMask24_10.mat"
+    say("dtu", f"scan24 written in {time.perf_counter() - t0:.1f} s: {len(ds)} PNGs of "
+        f"{IMG_SIZE}, cameras.npz for 1200x1600, {len(pts)} GT points in mm "
+        f"({(root / 'Points' / 'stl' / 'stl024_total.ply').stat().st_size >> 20} MiB), "
+        f"ObsMask {obs.stat().st_size >> 20} MiB")
+
+
+def phase_dtu(device):
+    """The Trainer on configs/dtu/scan24.yml at full width on a written
+    scan, DTU_OVERRIDES, DTU_MESH_OVERRIDES and dataset.root only, through
+    the final eval's DTU
+    branch (the official protocol's dtu_scores.tsv). The launch counts are
+    set to 0 just before Trainer.run and read just after. Returns
+    (launches, the phase's numbers)."""
+    import functools
+
+    from dbw_torch import kernels
+    from dbw_torch.eval import dtu_eval
+    from dbw_torch.train.trainer import Trainer
+    from dbw_torch.utils.config import load_yaml
+
+    cfg = load_yaml(DTU_CONFIG)
+    seed = cfg["training"]["seed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "DTU"
+        write_dtu_scan(root, device)
+        cfg["dataset"]["root"] = str(root)
+        cfg["training"].update(copy.deepcopy(DTU_OVERRIDES))
+        cfg["model"]["mesh"].update(DTU_MESH_OVERRIDES)
+        run = Path(tmp) / "run"
+        t0 = time.perf_counter()
+        tr = Trainer(copy.deepcopy(cfg), run, device=device, seed=seed)
+        ds = tr.dataset
+        say("dtu", f"Trainer built in {time.perf_counter() - t0:.1f} s on "
+            f"{DTU_CONFIG.relative_to(ROOT)} over its default.yml: dataset {ds.name} "
+            f"{ds.tag} {ds.imgs.shape}, {len(ds.pc_gt)} GT points, model "
+            f"{cfg['model']['mesh']['n_blocks']} blocks, K="
+            f"{cfg['model']['renderer']['faces_per_pixel']}, txt_size "
+            f"{cfg['model']['mesh']['txt_size']}, R_world {cfg['model']['mesh']['R_world']}, "
+            f"S_world {cfg['model']['mesh']['S_world']}, decouple_rendering "
+            f"{cfg['model']['rend_optim']['decouple_rendering']}; overrides "
+            f"{DTU_OVERRIDES}, model.mesh {DTU_MESH_OVERRIDES} and dataset.root")
+        spans = {"eval": [], "protocol": []}
+        timings = {}
+        tr.evaluate = timed(tr.evaluate, spans["eval"])
+        t_train = []
+        plots = tr.save_metric_plots
+        tr.save_metric_plots = lambda: (t_train.append(time.perf_counter()), plots())[1]
+        protocol = timed(functools.partial(dtu_eval.evaluate_mesh, timings=timings),
+                         spans["protocol"])
+        with routed([(dtu_eval, "evaluate_mesh", protocol)]):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            tr.run(seed=seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        n_steps = tr.n_epoches * tr.n_batches
+        scores_txt = (run / "final_scores.tsv").read_text().splitlines()
+        scores = dict(zip(scores_txt[0].split("\t"), map(float, scores_txt[1].split("\t"))))
+        dtu_txt = (run / "dtu_scores.tsv").read_text().splitlines() \
+            if (run / "dtu_scores.tsv").exists() else ["", ""]
+        dtu = dict(zip(dtu_txt[0].split("\t"), map(float, dtu_txt[1].split("\t")))) \
+            if dtu_txt[1] else {}
+        missing = check_run_dir(run, int(scores["n_blocks"]), tr.model.n_blocks)
+        missing += [] if (run / "dtu_scores.tsv").exists() else ["dtu_scores.tsv"]
+        numbers = dict(steps_per_s=n_steps / (t_train[0] - t0), eval_s=spans["eval"][0],
+                       protocol_s=spans["protocol"][0], protocol_split_s=dict(timings),
+                       dtu_scores=dtu, n_blocks_kept=int(scores["n_blocks"]))
+        say("dtu", f"run in {wall:.1f} s: {n_steps} steps in {t_train[0] - t0:.1f} s "
+            f"({numbers['steps_per_s']:.3f} steps/s over the training loop, interval "
+            f"work included), final eval {numbers['eval_s']:.2f} s, of which the "
+            f"official protocol {numbers['protocol_s']:.2f} s (sampling "
+            f"{timings.get('sample', math.nan):.2f}, downsampling "
+            f"{timings.get('downsample', math.nan):.2f}, KD-tree data->GT "
+            f"{timings.get('d2s', math.nan):.2f}, GT->data {timings.get('s2d', math.nan):.2f})")
+        say("dtu", f"final_scores {scores}; dtu_scores.tsv header {dtu_txt[0].split(chr(9))}, "
+            f"{dtu}; missing artifacts {missing}; launches {launches}")
+        not_launched = [k for k in SOURCES if not launches[k]]
+        ok = (dtu_txt[0] == "acc\tcomp\tavg" and len(dtu) == 3
+              and all(math.isfinite(v) for v in dtu.values())
+              and all(math.isfinite(v) for v in scores.values()) and not missing)
+        if not ok or not_launched:
+            raise SystemExit(f"dtu phase failed (kernels not launched: {not_launched})")
+    return launches, numbers
+
+
+def nn_top2_cpu(x, y, chunk=2000):
+    """The two smallest squared distances of each row of x to y, by the
+    same expansion as nn_dist2_idx, on the CPU: ((P1, 2) values, (P1,)
+    scale |x|^2 + |y_best|^2)."""
+    y2 = (y * y).sum(-1)
+    vals, scales = [], []
+    for s in range(0, len(x), chunk):
+        xc = x[s:s + chunk]
+        x2 = (xc * xc).sum(-1, keepdim=True)
+        d2 = (x2 + y2[None]).addmm_(xc, y.T, alpha=-2.0)
+        v, i = torch.topk(d2, 2, dim=-1, largest=False)
+        vals.append(v)
+        scales.append(x2[:, 0] + y2[i[:, 0]])
+    return torch.cat(vals), torch.cat(scales)
+
+
+def phase_mesh(mesh, device):
+    """MeshEvaluator at its real size on the card: phase 8's exported block
+    mesh against the synthetic GT points, then against 100,000 samples
+    with normals of the synthetic scene's GT blocks (the normal scores and
+    an ICP of 100,000 x 100,000 clouds); then the card's nn_dist2_idx
+    against the CPU's on NN_POINTS x NN_POINTS clouds: the same neighbour
+    wherever the CPU's two nearest are no near-tie, squared distances
+    within 1e-5 of the expansion's scale. Returns the phase's numbers."""
+    from dbw_torch.data.synthetic import make_synthetic_scene
+    from dbw_torch.eval.export import export_blocks_mesh
+    from dbw_torch.eval.metrics import MeshEvaluator, sample_points_from_mesh
+    from dbw_torch.losses.chamfer import nn_dist2_idx
+
+    verts, faces, label, pc_gt = mesh
+    ev = MeshEvaluator(device=device)
+    _, gt_model, gt_params = make_synthetic_scene((8, 8), n_views=2, seed=3, device=device)
+    gv, gf = export_blocks_mesh(gt_model, gt_params)
+    gt_pts, gt_nrm = sample_points_from_mesh(gv, gf, ev.N, np.random.default_rng(7),
+                                             return_normals=True)
+    out = {}
+    for name, gt, nrm in (("synthetic GT points", pc_gt, None),
+                          ("GT block samples with normals", gt_pts, gt_nrm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = ev.evaluate(verts, faces, gt, nrm)
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.perf_counter() - t0, scores=dict(scores))
+        say("mesh", f"MeshEvaluator (N {ev.N}, {ev.n_iter} ICP steps) on phase 8's "
+            f"mesh ({label}: {len(verts)} vertices, {len(faces)} faces) against {len(gt)} "
+            f"{name}: {out[name]['seconds']:.2f} s, {dict(scores)}")
+        if not scores or not all(math.isfinite(v) for v in scores.values()):
+            raise SystemExit("mesh: non-finite mesh scores")
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((NN_POINTS, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((NN_POINTS, 3)).astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_card, i_card = nn_dist2_idx(x.to(device), y.to(device))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    d_cpu, i_cpu = nn_dist2_idx(x, y)
+    top2, scale = nn_top2_cpu(x, y)
+    tie = (top2[:, 1] - top2[:, 0]) <= NN_TIE_REL * scale
+    wrong = int(((i_card.cpu() != i_cpu) & ~tie).sum())
+    d_gap = float(((d_card.cpu() - d_cpu).abs() / scale).max())
+    out["nn"] = dict(points=NN_POINTS, near_ties=int(tie.sum()), other_neighbour=wrong,
+                     max_dist2_gap=d_gap, card_s=t_card)
+    say("mesh", f"nn_dist2_idx {NN_POINTS} x {NN_POINTS}, card vs CPU: another neighbour "
+        f"at {wrong} points that are no near-tie ({int(tie.sum())} near-ties, two nearest "
+        f"within {NN_TIE_REL} of the scale; {int((i_card.cpu() != i_cpu).sum())} differ "
+        f"in all); max |d2 card - d2 CPU| / scale {d_gap:.3g} (tolerance 1e-5); card "
+        f"{1e3 * t_card:.1f} ms")
+    if wrong or d_gap > 1e-5:
+        raise SystemExit("mesh: the card's 1-NN disagrees with the CPU's")
+    return out
 
 
 def main():
@@ -1280,7 +1563,7 @@ def main():
     results = phase_kernels(model, device)
     del model
     torch.cuda.empty_cache()
-    launches = phase_main(cfg, device)
+    launches, vgg = phase_main(cfg, device)
     per_step = {"blocks pass": {n: launches[n] / N_STEPS for n in SOURCES}}
     per_step["env pass"] = per_step["blocks pass"]
     joint = phase_joint(cfg, device)
@@ -1289,7 +1572,13 @@ def main():
     per_step["band"] = band
     phase_train(cfg, device)
     phase_reference(cfg, device)
-    trainer, viz_ss, eval_ss, numbers = phase_trainer(device)
+    trainer, viz_ss, eval_ss, numbers, mesh = phase_trainer(device)
+    t0 = time.perf_counter()
+    dtu, dtu_numbers = phase_dtu(device)
+    say("dtu", f"phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_numbers = phase_mesh(mesh, device)
+    say("mesh", f"phase in {time.perf_counter() - t0:.1f} s")
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
@@ -1304,8 +1593,9 @@ def main():
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": main_launches[n],
          "launches_per_step": launches[n] / N_STEPS, "band_launches": band[n],
-         "trainer_launches": trainer[n], **results[n]}
-        for n in SOURCES], "trainer": numbers}
+         "trainer_launches": trainer[n], "dtu_trainer_launches": dtu[n], **results[n]}
+        for n in SOURCES], "trainer": numbers, "dtu": dtu_numbers, "mesh": mesh_numbers,
+        "vgg": vgg}
     line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
         launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)

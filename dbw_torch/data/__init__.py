@@ -1,21 +1,27 @@
-"""Dataset factory (PyTorch port of dbw_tpu/data/__init__.py). Only the
-synthetic dataset is ported; DTU, BlendedMVS and Nerfstudio raise."""
+"""Dataset factory (PyTorch port of dbw_tpu/data/__init__.py): synthetic,
+DTU and BlendedMVS. Nerfstudio scenes raise (ROADMAP.md queue 1, item 8)."""
 
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .base import Loader, MultiViewDataset
+from .bmvs import load_bmvs
+from .dtu import load_dtu
 from .synthetic import load_synthetic
+
+LOADERS = {"dtu": load_dtu, "bmvs": load_bmvs, "synthetic": load_synthetic}
 
 
 def get_dataset(name):
-    if name != "synthetic":
-        raise NotImplementedError(f"dataset {name!r} is not ported")
-    return load_synthetic
+    if name not in LOADERS:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported (nerfstudio: ROADMAP.md queue 1, "
+            "item 8)")
+    return LOADERS[name]
 
 
 def create_train_val_test_loader(cfg, seed=0, device=DEFAULT_DEVICE):
     """Three loaders (train shuffled) from cfg['dataset'] and the batch size
     of cfg['training']; synthetic ground truth is rendered on ``device`` (the
-    card unless the CPU is asked for)."""
+    card unless the CPU is asked for), scans are read on the host."""
     dkw = dict(cfg["dataset"])
     load = get_dataset(dkw.pop("name"))
     device = resolve_device(device)

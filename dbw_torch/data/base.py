@@ -6,13 +6,16 @@ A whole scene's views fit in device memory (49 x 300x400x3 f32 is 70 MB),
 so a dataset is loaded once into numpy and the loader is a shuffled index
 iterator with the reference's epoch semantics (drop_last=False, shuffle for
 train only), keyed by (seed, epoch) so that a resumed run replays the batch
-order of an uninterrupted one. The image-file loading of the DTU and
-BlendedMVS loaders (PIL) comes with those loaders.
+order of an uninterrupted one. ``load_image`` reads the DTU and
+BlendedMVS views (PIL, bilinear resize).
 """
 
 from __future__ import annotations
 
 import numpy as np
+from PIL import Image
+
+IMG_EXTENSIONS = ["jpeg", "jpg", "JPG", "png", "PNG"]
 
 
 class MultiViewDataset:
@@ -102,3 +105,12 @@ class Loader:
         order, _ = self._epoch_order()
         for k in range(len(self)):
             yield order[k * self.batch_size : (k + 1) * self.batch_size]
+
+
+def load_image(path, img_size):
+    """PIL load + bilinear resize to (H, W); returns (H, W, 3) float32."""
+    img = Image.open(path).convert("RGB")
+    H, W = img_size
+    if img.size != (W, H):
+        img = img.resize((W, H), Image.BILINEAR)
+    return np.asarray(img, np.float32) / 255.0

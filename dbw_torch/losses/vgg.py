@@ -5,8 +5,14 @@ Without pretrained weights the filters fall back to the same seeded He-normal
 draw as the JAX package (numpy ``default_rng(seed)``, HWIO), so both sides
 compute the same features. Weights are transposed HWIO -> OIHW once at load
 time. Images stay NHWC at the public functions; the convolutions run NCHW.
-Convolutions use ``torch.nn.functional.conv2d``; whether they run in TF32 is
-set by the caller (``torch.backends.cudnn.allow_tf32``).
+Convolutions use ``torch.nn.functional.conv2d`` in the features' ``dtype``:
+as in the JAX package, bfloat16 on the card and float32 on the CPU unless
+the caller says otherwise. The input and the filters are in ``dtype``, the
+biases stay float32 and are cast to ``dtype`` at the add after each
+convolution, every conv and ReLU output is in ``dtype``, and each slice
+output is returned as float32. Whether float32 convolutions run in TF32 is
+set by the caller (``torch.backends.cudnn.allow_tf32``); bfloat16 ones do
+not read it.
 """
 
 from __future__ import annotations
@@ -30,13 +36,21 @@ _LPIPS_SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 _LPIPS_SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 
 
+def default_dtype(device):
+    """The features' dtype on ``device`` when none is given: bfloat16 on the
+    card, float32 on the CPU (the JAX package's rule, keyed on its
+    backend)."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
 class VGG16Features(torch.nn.Module):
     """Frozen VGG16 feature extractor, on the card unless ``device`` says
-    otherwise."""
+    otherwise, in ``dtype`` (None: ``default_dtype(device)``)."""
 
     def __init__(self, weights: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None,
-                 seed: int = 0, device=DEFAULT_DEVICE):
+                 seed: int = 0, device=DEFAULT_DEVICE, dtype=None):
         super().__init__()
+        self.dtype = default_dtype(device) if dtype is None else dtype
         device = resolve_device(device)
         self.pretrained = weights is not None
         if weights is None:
@@ -44,7 +58,7 @@ class VGG16Features(torch.nn.Module):
         for i, (w, b) in enumerate(weights):
             w = torch.as_tensor(np.ascontiguousarray(
                 np.asarray(w, np.float32).transpose(3, 2, 0, 1)))  # HWIO->OIHW
-            self.register_buffer(f"w{i}", w.to(device))
+            self.register_buffer(f"w{i}", w.to(device, self.dtype))
             self.register_buffer(
                 f"b{i}", torch.as_tensor(np.asarray(b, np.float32)).to(device))
 
@@ -84,30 +98,32 @@ class VGG16Features(torch.nn.Module):
         return [(d[f"w{i}"], d[f"b{i}"]) for i in range(n)]
 
     @classmethod
-    def from_env_or_random(cls, seed=0, path=None, device=DEFAULT_DEVICE):
+    def from_env_or_random(cls, seed=0, path=None, device=DEFAULT_DEVICE, dtype=None):
         path = path or os.environ.get("DBW_VGG_WEIGHTS")
         if path:
             if not os.path.exists(path):
                 raise FileNotFoundError(
                     f"VGG weights path {path!r} does not exist")
             loader = cls.load_npz if path.endswith(".npz") else cls.load_torch_state_dict
-            return cls(loader(path), device=device)
-        return cls(None, seed=seed, device=device)
+            return cls(loader(path), device=device, dtype=dtype)
+        return cls(None, seed=seed, device=device, dtype=dtype)
 
     def forward(self, x, max_level=5):
-        """x: (B, H, W, 3) normalized -> list of NCHW slice outputs
+        """x: (B, H, W, 3) normalized -> list of NCHW float32 slice outputs
         [relu1_2, relu2_2, relu3_3, relu4_3, relu5_3][:max_level]."""
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
         feats, conv_i = [], 0
         for c in _CFG:
             if c == "M":
                 x = Fn.max_pool2d(x, 2)
                 continue
-            x = torch.relu(Fn.conv2d(x, getattr(self, f"w{conv_i}"),
-                                     getattr(self, f"b{conv_i}"), padding=1))
+            # the bias is added after the convolution's output is rounded
+            # to dtype, as the JAX package adds it
+            y = Fn.conv2d(x, getattr(self, f"w{conv_i}"), padding=1)
+            x = torch.relu(y + getattr(self, f"b{conv_i}").to(self.dtype)[:, None, None])
             conv_i += 1
             if conv_i in _SLICE_END_CONV:
-                feats.append(x)
+                feats.append(x.float())
                 if len(feats) >= max_level:
                     break
         return feats
@@ -127,14 +143,14 @@ class PerceptualLoss(torch.nn.Module):
 
     def __init__(self, feature_levels=None, normalize_input=True,
                  normalize_features=True, sum_channels=False, vgg=None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, dtype=None):
         super().__init__()
         self.feature_levels = list(feature_levels or [3])
         self.max_level = max(self.feature_levels)
         self.normalize_input = normalize_input
         self.normalize_features = normalize_features
         self.sum_channels = sum_channels
-        self.vgg = vgg or VGG16Features.from_env_or_random(device=device)
+        self.vgg = vgg or VGG16Features.from_env_or_random(device=device, dtype=dtype)
 
     def forward(self, imgs, rec):
         if self.normalize_input:
@@ -162,9 +178,9 @@ class LPIPSLoss(torch.nn.Module):
     """LPIPS (VGG flavor) with uniform channel weights unless
     $DBW_LPIPS_WEIGHTS names an .npz of ``lin{i}`` arrays."""
 
-    def __init__(self, vgg=None, lin_path=None, device=DEFAULT_DEVICE):
+    def __init__(self, vgg=None, lin_path=None, device=DEFAULT_DEVICE, dtype=None):
         super().__init__()
-        self.vgg = vgg or VGG16Features.from_env_or_random(device=device)
+        self.vgg = vgg or VGG16Features.from_env_or_random(device=device, dtype=dtype)
         lin_path = lin_path or os.environ.get("DBW_LPIPS_WEIGHTS")
         self.lins = None
         if lin_path and os.path.exists(lin_path):

@@ -66,3 +66,73 @@ def ndc_pixel_centers(image_size, device=None, row_range=None):
         float(row_range[0]) + torch.arange(row_range[1], **f64))
     return (((W - 1.0 - 2.0 * j) / s).to(torch.float32),
             ((H - 1.0 - 2.0 * i) / s).to(torch.float32))
+
+
+# -- host-side conversions of the dataset loaders (numpy) --------------------
+
+
+def decompose_projection(P):
+    """3x4 projection matrix -> OpenCV (K 4x4, R 3x3, T 3), numpy: an RQ
+    decomposition (through a QR of the flipped transpose), K's diagonal made
+    positive; R is returned transposed and T is the camera centre, the
+    reference's convention (its cv2 decomposition)."""
+    P = np.asarray(P, dtype=np.float64)
+    M = P[:3, :3]
+    rev = np.eye(3)[::-1]
+    q, r = np.linalg.qr((rev @ M).T)
+    K = rev @ r.T @ rev
+    R = rev @ q.T
+    sgn = np.sign(np.diag(K))
+    sgn[sgn == 0] = 1.0
+    D = np.diag(sgn)
+    K = K @ D
+    R = D @ R
+    if np.linalg.det(R) < 0:
+        K = -K
+        R = -R
+    c = -np.linalg.inv(M) @ P[:3, 3]  # the camera centre
+    K4 = np.eye(4, dtype=np.float32)
+    K4[:3, :3] = (K / K[2, 2]).astype(np.float32)
+    return K4, R.T.astype(np.float32), c.astype(np.float32)
+
+
+def camera_from_opencv_projection(P, image_size_hw):
+    """3x4 P (pixels, OpenCV convention) -> (K_ndc 4x4, R, T) in the
+    internal convention: world->camera inversion, the x and y flips of the
+    screen orientation, pixel->NDC rescale of K."""
+    K, R, T = decompose_projection(P)
+    # dataset convention: x_world = R @ x_cam + T -> x_cam = R.T (x_world - T)
+    R = R.T
+    T = -R @ T
+
+    H, W = image_size_hw
+    s = min(H, W) / 2.0
+    cx, cy = W / 2.0, H / 2.0
+    K_ndc = np.zeros((4, 4), dtype=np.float32)
+    K_ndc[0, 0], K_ndc[1, 1] = K[0, 0] / s, K[1, 1] / s
+    K_ndc[0, 2], K_ndc[1, 2] = -(K[0, 2] - cx) / s, -(K[1, 2] - cy) / s
+    K_ndc[2, 3] = 1.0
+    K_ndc[3, 2] = 1.0
+
+    R_out = R.T.copy()  # row-vector convention
+    T_out = T.copy()
+    R_out[:, :2] *= -1
+    T_out[:2] *= -1
+    return K_ndc, R_out.astype(np.float32), T_out.astype(np.float32)
+
+
+def opencv_projection_from_camera(K_ndc, R, T, image_size_hw):
+    """The inverse of ``camera_from_opencv_projection``: (K_ndc 4x4, R, T)
+    of the internal convention -> the 3x4 OpenCV projection in pixels of an
+    image of ``image_size_hw``, float64."""
+    K_ndc = np.asarray(K_ndc, np.float64)
+    H, W = image_size_hw
+    s = min(H, W) / 2.0
+    K = np.array([[K_ndc[0, 0] * s, 0.0, W / 2.0 - K_ndc[0, 2] * s],
+                  [0.0, K_ndc[1, 1] * s, H / 2.0 - K_ndc[1, 2] * s],
+                  [0.0, 0.0, 1.0]])
+    R_cv = np.array(R, np.float64)
+    T_cv = np.array(T, np.float64)
+    R_cv[:, :2] *= -1  # undo the screen-orientation flips
+    T_cv[:2] *= -1
+    return K @ np.concatenate([R_cv.T, T_cv[:, None]], axis=1)

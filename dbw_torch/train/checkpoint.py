@@ -27,6 +27,7 @@ import torch
 
 from ..convert import scene_params_to_numpy
 from ..models.dbw import PARAM_NAMES
+from ..utils.device import DEFAULT_DEVICE
 
 SceneParams = NamedTuple("SceneParams", [(k, object) for k in PARAM_NAMES])
 
@@ -169,3 +170,22 @@ def restore(state, params: dict, optimizer=None):
                 np.asarray(state["model_state"][k], np.float32)))
     if optimizer is not None and state.get("optimizer_state") is not None:
         adam_state_from_jax(state["optimizer_state"], optimizer, params)
+
+
+def load_model_from_checkpoint(path, img_size, device=DEFAULT_DEVICE, **overrides):
+    """Rebuild (model, params, checkpoint) from a ``model.pkl``'s saved
+    model_kwargs (with ``overrides``) on ``device``; the image size comes
+    from the dataset, not from the kwargs."""
+    from ..convert import scene_params_from_numpy
+    from ..models.dbw import BlocksWorld
+
+    state = load_checkpoint(path)
+    kwargs = dict(state.get("model_kwargs") or {})
+    kwargs.update(overrides)
+    name = kwargs.pop("name", state.get("model_name", "dbw"))
+    if name != "dbw":
+        raise NotImplementedError(f"model {name!r} is not ported")
+    kwargs.pop("img_size", None)
+    model = BlocksWorld(img_size, device=device, **kwargs)
+    params = scene_params_from_numpy(state["model_state"], model.device)
+    return model, params, state

@@ -8,7 +8,8 @@ directory ``runs/<dataset>/<tag>``: the config, ``training.log``,
 ``train_metrics.tsv`` and ``val_metrics.tsv``, ``model.pkl`` (the JAX
 package's layout), the viz streams (``reconstructions``,
 ``reconstructions_hard``, ``reconstructions_syn``, ``txt_blocks``), and
-the final evaluation (``final_scores.tsv``, ``quali_eval/``).
+the final evaluation (``final_scores.tsv``, ``quali_eval/``, and for a DTU
+scan ``dtu_scores.tsv``).
 
 The loop keeps the JAX Trainer's schedule: with ``steps_per_call`` S the
 batches are taken in groups of S (a ragged tail at the end of an epoch) and
@@ -503,10 +504,15 @@ class Trainer:
         print_log("Metrics and plots saved")
 
     def evaluate(self):
+        """The final evaluation; a DTU scan read from a configured
+        ``dataset.root`` is scored against that root's ObsMask and STL
+        points (else against ``datasets/DTU``)."""
         from ..eval.full import evaluate_run
 
+        root = self.cfg["dataset"].get("root")
+        kw = {"dtu_dir": root} if root else {}
         evaluate_run(self.model, self.params, self.test_loader, self.dataset,
-                     self.run_dir, quali_kwargs=self.eval_kwargs or None)
+                     self.run_dir, quali_kwargs=self.eval_kwargs or None, **kw)
         print_log("Evaluation over")
 
 

@@ -1,5 +1,5 @@
-"""Paths and deterministic host seeding (a copy of the parts of
-dbw_tpu/utils/misc.py that the Trainer uses).
+"""Paths, file listing and deterministic host seeding (a copy of the parts
+of dbw_tpu/utils/misc.py that the Trainer and the loaders use).
 
 ``use_seed`` saves and restores the host RNG state (python + numpy) around
 a block; device draws come from explicitly seeded ``torch.Generator``s, so
@@ -24,6 +24,20 @@ def path_mkdir(path):
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def get_files_from(dir_path, valid_extensions=None, recursive=False, sort=False):
+    """The files of ``dir_path`` (absolute), optionally of the given
+    extensions, searched recursively, sorted."""
+    path = path_exists(dir_path)
+    glob = path.glob("**/*") if recursive else path.glob("*")
+    files = [f.absolute() for f in glob if f.is_file()]
+    if valid_extensions is not None:
+        if isinstance(valid_extensions, str):
+            valid_extensions = [valid_extensions]
+        exts = [e if e.startswith(".") else f".{e}" for e in valid_extensions]
+        files = [f for f in files if f.suffix in exts]
+    return sorted(files) if sort else files
 
 
 class use_seed:

@@ -4,14 +4,20 @@ and scores beside the reference run's.
 
     python3 scripts/torch_trainer_run.py [-c synthetic/dtu_shaped.yml]
         [--n-epoches N] [--tag TAG] [--ref runs/synthetic/dtu_shaped_r5]
-        [--out runs/trainer_run_out] [--cpu]
+        [--out runs/trainer_run_out] [--vgg-f32] [--cpu]
 
 The run directory is ``runs/<dataset>/<tag>``. Every 60 s, and at the end,
-the small outputs (the metric TSVs, ``training.log``, ``final_scores.tsv``)
-are copied into ``--out``, so that a run cut by a time limit still leaves
-its losses there. At the end the script prints the card, the run's
-wall-clock (the training loop and the final eval apart), ``loss_total`` at
-every iteration both runs logged, and both runs' final scores.
+the small outputs (the metric TSVs, ``training.log``, ``final_scores.tsv``,
+``mesh_scores.tsv``) and ``model.pkl`` are copied into ``--out``, so that a
+run cut by a time limit leaves its losses and its last checkpoint there (a
+run with ``training.resume`` set to that checkpoint replays the
+uninterrupted run bitwise). At the end the run's mesh is scored with the
+port's ``MeshEvaluator`` at its full size (100,000 points, 100 ICP steps),
+and the script prints the card, the run's
+wall-clock (the training loop, the final eval and the mesh scoring apart),
+``loss_total`` at every iteration both runs logged, and both runs' final
+scores and mesh scores. ``--vgg-f32`` runs the VGG16 features in float32
+instead of the card's bfloat16 default (the A/B of the features' dtype).
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SMALL = ("train_metrics.tsv", "val_metrics.tsv", "training.log", "final_scores.tsv")
+SMALL = ("train_metrics.tsv", "val_metrics.tsv", "training.log", "final_scores.tsv",
+         "mesh_scores.tsv", "model.pkl")
 
 
 def copy_small(run_dir, out):
@@ -45,6 +52,8 @@ def read_tsv(path):
 
 
 def main():
+    from dbw_torch.eval.mesh_scores import score_run_mesh
+    from dbw_torch.eval.metrics import MeshEvaluator
     from dbw_torch.train.trainer import Trainer
     from dbw_torch.utils.config import dump_yaml, load_yaml
     from dbw_torch.utils.logger import create_logger
@@ -56,15 +65,22 @@ def main():
     ap.add_argument("--tag", default="dtu_shaped_torch")
     ap.add_argument("--ref", default="runs/synthetic/dtu_shaped_r5")
     ap.add_argument("--out", default="runs/trainer_run_out")
+    ap.add_argument("--vgg-f32", action="store_true",
+                    help="float32 VGG16 features (default: bfloat16 on the card)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (a rehearsal)")
     args = ap.parse_args()
     if not args.cpu:
         if not torch.cuda.is_available():
             print("torch_trainer_run: no CUDA device", file=sys.stderr)
             return 2
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, check=True).stdout.strip(), flush=True)
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True).stdout.strip()
+        print(card, flush=True)
+    if args.vgg_f32:
+        from dbw_torch.losses import vgg
+
+        vgg.default_dtype = lambda device: torch.float32
     cfg = load_yaml(CONFIGS_PATH / args.config)
     if args.n_epoches is not None:
         cfg["training"]["n_epoches"] = args.n_epoches
@@ -109,7 +125,15 @@ def main():
           f"({steps / (t_loop[0] - t_built):.3f} steps/s, interval work included), "
           f"plots and videos {t_eval[0] - t_loop[0]:.1f} s, final eval "
           f"{t_end - t_eval[0]:.1f} s, total {t_end - t0:.1f} s", flush=True)
+    t_mesh = time.perf_counter()
+    score_run_mesh(run_dir, MeshEvaluator(device="cpu" if args.cpu else "cuda"))
+    print(f"mesh scores (MeshEvaluator, 100,000 points, 100 ICP steps) in "
+          f"{time.perf_counter() - t_mesh:.1f} s", flush=True)
+    copy_small(run_dir, out)
 
+    if not args.cpu:
+        print(card, flush=True)
+        (out / "card.txt").write_text(card + "\n")
     mine = read_tsv(run_dir / "train_metrics.tsv")
     ref = read_tsv(ROOT / args.ref / "train_metrics.tsv")
     common = sorted(set(mine["iteration"].astype(int)) & set(ref["iteration"].astype(int)))
@@ -118,10 +142,11 @@ def main():
         a = mine["loss_total"][mine["iteration"] == it][0]
         b = ref["loss_total"][ref["iteration"] == it][0]
         print(f"{it}\t{a:.6f}\t{b:.6f}")
-    for name, d in (("port", run_dir), ("ref", ROOT / args.ref)):
-        p = d / "final_scores.tsv"
-        if p.exists():
-            print(f"final_scores ({name}):\n{p.read_text().strip()}")
+    for scores in ("final_scores.tsv", "mesh_scores.tsv"):
+        for name, d in (("port", run_dir), ("ref", ROOT / args.ref)):
+            p = d / scores
+            if p.exists():
+                print(f"{scores} ({name}):\n{p.read_text().strip()}")
     return 0
 
 

@@ -114,8 +114,15 @@ def test_create_loaders_for_synthetic():
     assert (len(train.dataset), len(val.dataset), len(test.dataset)) == (8, 2, 2)
     assert train.shuffle and not val.shuffle and train.batch_size == 3
     assert train.dataset.img_size == (24, 32)
-    with pytest.raises(NotImplementedError):
-        create_train_val_test_loader({"dataset": {"name": "dtu"}}, device="cpu")
+    # dtu and bmvs are ported (tests/test_torch_scans.py loads them from a
+    # scan): without one on disk they fail for want of the scan only
+    for name in ("dtu", "bmvs"):
+        with pytest.raises(FileNotFoundError):
+            create_train_val_test_loader(
+                {"dataset": {"name": name, "tag": "scan0", "root": "/nonexistent"}},
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="nerfstudio"):
+        create_train_val_test_loader({"dataset": {"name": "nerfstudio"}}, device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -30,6 +30,9 @@ MODULES = [
     "dbw_torch.render.trajectory", "dbw_torch.eval.metrics",
     "dbw_torch.eval.export", "dbw_torch.eval.quant", "dbw_torch.eval.quali",
     "dbw_torch.eval.full", "dbw_torch.train.trainer", "chip_smoke",
+    "dbw_torch.losses.chamfer", "dbw_torch.eval.icp", "dbw_torch.eval.ransac",
+    "dbw_torch.eval.dtu_eval", "dbw_torch.eval.mesh_scores", "dbw_torch.data.dtu",
+    "dbw_torch.data.bmvs", "dbw_torch.data.scan_writer", "dbw_torch.native",
 ]
 BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
        "('jax', 'jaxlib', 'optax', 'dbw_tpu'))")
@@ -45,6 +48,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "from dbw_torch.native import get_lib\n"
+        "assert 'dbw_tpu' not in str(get_lib()._name)\n"
         f"bad = {BAD}\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
