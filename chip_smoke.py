@@ -60,7 +60,22 @@ Phases, one line each (or a few):
    and the protocol's split;
 10. mesh: MeshEvaluator at its real size (100,000 points, 100 ICP steps,
    normals) on the card on phase 8's exported block mesh and synthetic GT;
-   the card's 1-NN against the CPU's on a 20,000 x 20,000 cloud.
+   the card's 1-NN against the CPU's on a 20,000 x 20,000 cloud;
+11. protocol: dbw_torch.train.multi_seed.MultiSeedTrainer on the shipped
+   config at full width with seeds 11 22 33 44 55 (only n_epoches, the
+   stat intervals and the final eval's video knobs overridden: 2 epochs,
+   26 iterations, one val interval and save): three uninterrupted runs
+   (their largest spread over the seeds sets the tolerance: K3-K5's
+   atomics add in any order), a fourth killed after its save and resumed,
+   which must end within that tolerance of the first; the first's final evaluation and its whole run directory,
+   every kernel launched in it; a 1-seed protocol against the Trainer with
+   the same seed over the same 10 logged steps; seed-steps/s beside phase
+   8's steps/s, peak memory, the launch counts and seed_selection.tsv;
+12. scenes: dbw_torch.train.multi_scene.MultiSceneTrainer on two synthetic
+   scenes of the shipped config (dataset seeds 3 and 5, two training
+   seeds), full width, 1 seed each, 2 epochs, evaluate(quali=False): each
+   run directory's files, finite losses that differ between the scenes,
+   seed-steps/s.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -133,6 +148,31 @@ DTU_CONFIG = ROOT / "configs" / "dtu" / "scan24.yml"
 DTU_OVERRIDES = dict(n_epoches=3, train_stat_interval=13, val_stat_interval=26,
                      eval=dict(n_traj_videos=1, NV=10))
 DTU_MESH_OVERRIDES = dict(opacity_init=0.9)
+# the protocol phase: the shipped config, 5 seeds, these training keys
+# overridden. 2 epochs of 13 batches are 26 iterations in groups of 5; the
+# val interval (and the save) fires at 20 (inside the group 19-23, so at
+# 23), the log interval at 10 (at 13) and 20 (at 23)
+PROTOCOL_SEEDS = (11, 22, 33, 44, 55)
+PROTOCOL_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20,
+                          eval=dict(n_traj_videos=1, NV=10))
+# a 1-seed protocol against the Trainer: one epoch one step at a time, the
+# losses of its first 10 steps
+SLOT_OVERRIDES = dict(n_epoches=1, steps_per_call=1, train_stat_interval=5,
+                      val_stat_interval=1000)
+N_SLOT_STEPS = 10
+# the resumed run's per-seed final losses against the uninterrupted run's:
+# within the larger of 4x the spread of three uninterrupted runs (the
+# largest gap of two of them over the seeds) and the per-step loss rtol of
+# the parity checks (ROADMAP.md). The atomics' drift differs by seed (1e-7
+# to 5e-6 on the card) and two runs of a seed may agree closely by chance:
+# against one pair per seed, a resumed run that drifts like the others
+# fails about a third of the time; against three runs pooled, well under
+# one in a hundred
+PROTOCOL_SPREAD_FACTOR = 4.0
+PROTOCOL_RTOL_FLOOR = 2e-5
+# the scenes phase: two synthetic scenes of the shipped config
+SCENE_DATASET_SEEDS = (3, 5)
+SCENES_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20)
 # the written scan: a millimetre world (DTU's scale matrices scale by ~200
 # and move the origin by a few hundred mm), ~1 M GT points
 DTU_SCALE_MAT = np.array([[200.0, 0, 0, -10.0], [0, 200.0, 0, 35.0],
@@ -1533,6 +1573,246 @@ def phase_mesh(mesh, device):
     return out
 
 
+def launch_diff(fn, counts):
+    """fn, with the launches of every kernel made by each call added into
+    the dict ``counts``."""
+    from dbw_torch import kernels
+
+    def wrapper(*args, **kw):
+        before = dict(kernels.LAUNCHES)
+        out = fn(*args, **kw)
+        for k, v in kernels.LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + v - before[k]
+        return out
+    return wrapper
+
+
+def record_step_losses(t, pick):
+    """Wrap the ``_train_step`` of a Trainer or protocol so that each step
+    appends ``pick(t)`` (its loss, a device scalar) to the returned list."""
+    out, step = [], t._train_step
+
+    def wrapper(*args, **kw):
+        step(*args, **kw)
+        out.append(pick(t))
+    t._train_step = wrapper
+    return out
+
+
+def read_losses(path):
+    """A metric TSV as {column: array}."""
+    from dbw_torch.eval.metrics import Metrics
+
+    return Metrics(log_file=path, append=True).read_log()
+
+
+def protocol_run(cfg, run, device, kill_after_save=False):
+    """One MultiSeedTrainer run of PROTOCOL_SEEDS; with ``kill_after_save``
+    it dies right after its first save and is resumed from
+    multi_model.pkl. Returns (trainer, final per-seed losses, seconds of
+    the loop, launches of its run)."""
+    from dbw_torch import kernels
+    from dbw_torch.train.multi_seed import MultiSeedTrainer
+
+    tr = MultiSeedTrainer(copy.deepcopy(cfg), run, PROTOCOL_SEEDS, device=device)
+    if kill_after_save:
+        save = tr.save
+
+        def save_and_die(epoch, batch):
+            save(epoch, batch)
+            raise KeyboardInterrupt("killed after the save")
+
+        tr.save = save_and_die
+        try:
+            tr.run()
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise SystemExit("protocol phase failed: the run was not killed")
+        tr = MultiSeedTrainer(copy.deepcopy(cfg), run, resume=True, device=device)
+        say("protocol", f"killed after the save, resumed at epoch {tr.epoch_start} "
+            f"batch {tr.batch_start}, step counter {tr._step_ctr}")
+    val_counts = {}
+    tr._val_and_log = launch_diff(tr._val_and_log, val_counts)
+    tr.val_counts = val_counts
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, _, losses = tr.run()
+    torch.cuda.synchronize()
+    return tr, np.asarray(losses), time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def check_protocol_dir(run, seeds, n_blocks):
+    """The JAX protocol's run directory after evaluate(): the missing
+    files."""
+    want = ["train_metrics.tsv", "seed_selection.tsv", "multi_model.pkl", "model.pkl",
+            "final_scores.tsv", "quali_eval/mesh.obj", "quali_eval/index.html",
+            "quali_eval/textures/bkg.png"]
+    want += [f"quali_eval/textures/block_{k:02d}.png" for k in range(n_blocks)]
+    want += [f"seed{s}/{f}" for s in seeds
+             for f in ("model.pkl", "val_metrics.tsv", "final_scores.tsv")]
+    want += [f"reconstructions_best/img{k}/input.png" for k in range(4)]
+    missing = [w for w in want if not (run / w).exists()]
+    missing += [f"reconstructions_best/img{k}/evolution.*" for k in range(4)
+                if not list((run / "reconstructions_best" / f"img{k}").glob("evolution.*"))]
+    missing += [f"seed{s}/quali_eval" for s in seeds if (run / f"seed{s}" / "quali_eval").exists()]
+    return missing
+
+
+def phase_protocol(device, trainer_steps_per_s):
+    """The multi-seed protocol on the shipped config at full width with
+    PROTOCOL_SEEDS, only PROTOCOL_OVERRIDES changed: run A (counts set to 0
+    just before its run, read after its final evaluation), runs B and D
+    (the spread), run C killed after its save and resumed; then a 1-seed
+    protocol against the Trainer. Returns (launches, numbers)."""
+    from dbw_torch import kernels
+    from dbw_torch.train.trainer import Trainer
+    from dbw_torch.utils.config import load_yaml
+
+    cfg = load_yaml(CONFIG)
+    cfg["training"].update(copy.deepcopy(PROTOCOL_OVERRIDES))
+    S = len(PROTOCOL_SEEDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, loss_a, wall_a, loop_launches = protocol_run(cfg, Path(tmp) / "a", device)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        a.evaluate(quali_kwargs=copy.deepcopy(PROTOCOL_OVERRIDES["eval"]))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        run_launches = dict(kernels.LAUNCHES)
+        n_iter = a.n_epoches * a.n_batches
+        seed_steps = S * n_iter / wall_a
+        n_val = len(read_losses(Path(tmp) / "a" / f"seed{PROTOCOL_SEEDS[0]}"
+                                / "val_metrics.tsv")["iteration"])
+        per_val = {k: a.val_counts.get(k, 0) / max(n_val, 1) for k in SOURCES}
+        per_iter = {k: (loop_launches[k] - a.val_counts.get(k, 0)) / n_iter for k in SOURCES}
+        say("protocol", f"run A: {n_iter} iterations of {S} seeds in {wall_a:.2f} s: "
+            f"{seed_steps:.3f} seed-steps/s over the loop (interval work included) "
+            f"against phase 8's {trainer_steps_per_s:.3f} single-seed steps/s in this "
+            f"call ({seed_steps / trainer_steps_per_s:.3f}x); peak memory {peak:.2f} GiB; "
+            f"final eval {eval_s:.2f} s")
+        say("protocol", f"launches, loop {loop_launches}; per iteration {per_iter}; per "
+            f"val interval ({n_val}) {per_val}; loop and final eval {run_launches}")
+        sel = (Path(tmp) / "a" / "seed_selection.tsv").read_text()
+        print(sel, end="", flush=True)
+        scores_txt = (Path(tmp) / "a" / "final_scores.tsv").read_text().splitlines()
+        scores = [float(v) for v in scores_txt[1].split("\t")]
+        missing = check_protocol_dir(Path(tmp) / "a", PROTOCOL_SEEDS, a.model.n_blocks)
+        tsv = read_losses(Path(tmp) / "a" / "train_metrics.tsv")
+        say("protocol", f"train_metrics.tsv columns {list(tsv)}, iterations "
+            f"{[int(i) for i in tsv['iteration']]}; missing files {missing}")
+        del a
+        _, loss_b, wall_b, _ = protocol_run(cfg, Path(tmp) / "b", device)
+        _, loss_d, _, _ = protocol_run(cfg, Path(tmp) / "d", device)
+        c, loss_c, wall_c, _ = protocol_run(cfg, Path(tmp) / "c", device,
+                                            kill_after_save=True)
+        resumed_iters = len(read_losses(Path(tmp) / "c" / "train_metrics.tsv")["iteration"])
+        del c
+        runs = (loss_a, loss_b, loss_d)
+        spread = np.max([np.abs(x - y) for i, x in enumerate(runs) for y in runs[i + 1:]],
+                        axis=0)
+        tol = np.maximum(PROTOCOL_SPREAD_FACTOR * spread.max(),
+                         PROTOCOL_RTOL_FLOOR * np.abs(loss_a))
+        gap = np.abs(loss_c - loss_a)
+        say("protocol", f"final per-seed losses A {loss_a.tolist()}, B {loss_b.tolist()}, "
+            f"D {loss_d.tolist()}, resumed C {loss_c.tolist()}; the largest gap of two "
+            f"of A, B, D {spread.tolist()}, |C - A| {gap.tolist()}, tolerance "
+            f"{tol.tolist()}; loops {wall_b:.2f} s (B), {wall_c:.2f} s (C after the "
+            "resume)")
+        torch.cuda.empty_cache()
+
+        slot_cfg = load_yaml(CONFIG)
+        slot_cfg["training"].update(copy.deepcopy(SLOT_OVERRIDES))
+        slot_cfg["training"]["seed"] = PROTOCOL_SEEDS[0]
+        from dbw_torch.train.multi_seed import MultiSeedTrainer
+
+        one = MultiSeedTrainer(copy.deepcopy(slot_cfg), Path(tmp) / "one",
+                               PROTOCOL_SEEDS[:1], device=device)
+        one.viz = False
+        la = record_step_losses(one, lambda t: t._loss_buffer[-1][0][0])
+        one.run()
+        tr = Trainer(copy.deepcopy(slot_cfg), Path(tmp) / "trainer", device=device,
+                     seed=PROTOCOL_SEEDS[0])
+        tr.log_visualizations = lambda it: None
+        tr.save_metric_plots = lambda: None
+        tr.evaluate = lambda: None
+        total = tr._loss_keys.index("total")
+        lb = record_step_losses(tr, lambda t: t._loss_buffer[-1][0][total])
+        tr.run(seed=PROTOCOL_SEEDS[0])
+        n = N_SLOT_STEPS
+        la, lb = np.array([float(v) for v in la[:n]]), np.array([float(v) for v in lb[:n]])
+        slot_tol = np.maximum(PROTOCOL_SPREAD_FACTOR * spread.max(), PROTOCOL_RTOL_FLOOR * lb)
+        pgap = max(float((one.params[k][0] - p).detach().abs().max())
+                   for k, p in tr.params.items())
+        say("protocol", f"1-seed protocol against the Trainer (seed {PROTOCOL_SEEDS[0]}), "
+            f"the losses of steps 1-{n}: largest |d| {np.abs(la - lb).max():.3e}, largest "
+            f"|d| / tolerance {(np.abs(la - lb) / slot_tol).max():.3f}; largest parameter "
+            f"gap after {one.n_batches} steps {pgap:.3e}")
+    not_launched = [k for k in SOURCES if not run_launches[k]]
+    ok = (np.isfinite(loss_a).all() and np.isfinite(loss_c).all()
+          and np.isfinite(scores).all() and not missing and resumed_iters == len(tsv["iteration"])
+          and (gap <= tol).all() and len(la) == len(lb) == N_SLOT_STEPS
+          and (np.abs(la - lb) <= slot_tol).all())
+    if not ok or not_launched:
+        raise SystemExit(f"protocol phase failed (kernels not launched: {not_launched})")
+    numbers = dict(seed_steps_per_s=seed_steps, trainer_steps_per_s=trainer_steps_per_s,
+                   loop_s=wall_a, eval_s=eval_s, peak_gib=peak, seeds=S,
+                   iterations=n_iter, final_losses=loss_a.tolist(),
+                   spread=spread.tolist(), resume_gap=gap.tolist(),
+                   slot_vs_trainer_max=float(np.abs(la - lb).max()))
+    return {"run": run_launches, "per_iteration": per_iter, "per_val_interval": per_val}, numbers
+
+
+def phase_scenes(device):
+    """MultiSceneTrainer on two synthetic scenes of the shipped config at
+    full width, 1 seed each, 2 epochs, evaluate(quali=False). Returns its
+    numbers."""
+    from dbw_torch.train.multi_scene import MultiSceneTrainer
+    from dbw_torch.utils.config import load_yaml
+
+    cfgs = []
+    for k, ds_seed in enumerate(SCENE_DATASET_SEEDS):
+        cfg = load_yaml(CONFIG)
+        cfg["training"].update(copy.deepcopy(SCENES_OVERRIDES))
+        cfg["training"]["seed"] += k
+        cfg["dataset"].update(seed=ds_seed, tag=f"scene{ds_seed}")
+        cfgs.append(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [Path(tmp) / f"scene{s}" for s in SCENE_DATASET_SEEDS]
+        tr = MultiSceneTrainer(copy.deepcopy(cfgs), dirs, n_seeds=1, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, losses = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr.evaluate(quali=False)
+        eval_s = time.perf_counter() - t0
+        n_iter = tr.n_epoches * tr.n_batches
+        want = ["train_metrics.tsv", "val_metrics.tsv", "model.pkl", "final_scores.tsv"]
+        missing = [f"{d.name}/{w}" for d in dirs for w in want if not (d / w).exists()]
+        missing += [f"{d.name}/quali_eval" for d in dirs if (d / "quali_eval").exists()]
+        if not (dirs[0] / "multi_scene_model.pkl").exists():
+            missing.append("multi_scene_model.pkl")
+        logs = [read_losses(d / "train_metrics.tsv") for d in dirs]
+        cols = [np.asarray(lg[f"loss_s{c['training']['seed']}"]) for lg, c in zip(logs, cfgs)]
+        seed_steps = len(dirs) * n_iter / wall
+        say("scenes", f"{len(dirs)} scenes x 1 seed, {n_iter} iterations in {wall:.2f} s: "
+            f"{seed_steps:.3f} seed-steps/s; final losses {losses.ravel().tolist()}; "
+            f"logged losses {[c.tolist() for c in cols]}; evaluate(quali=False) "
+            f"{eval_s:.2f} s; n_seen {tr.n_seen.tolist()}; missing files {missing}")
+    ok = (np.isfinite(losses).all() and all(np.isfinite(c).all() for c in cols)
+          and not np.array_equal(cols[0], cols[1]) and losses[0, 0] != losses[1, 0]
+          and not missing)
+    if not ok:
+        raise SystemExit("scenes phase failed")
+    return dict(seed_steps_per_s=seed_steps, loop_s=wall, eval_s=eval_s,
+                iterations=n_iter, final_losses=losses.ravel().tolist())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1579,6 +1859,14 @@ def main():
     t0 = time.perf_counter()
     mesh_numbers = phase_mesh(mesh, device)
     say("mesh", f"phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    protocol, protocol_numbers = phase_protocol(device, numbers["steps_per_s"])
+    protocol_numbers["phase_s"] = time.perf_counter() - t0
+    say("protocol", f"phase in {protocol_numbers['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    scenes_numbers = phase_scenes(device)
+    scenes_numbers["phase_s"] = time.perf_counter() - t0
+    say("scenes", f"phase in {scenes_numbers['phase_s']:.1f} s")
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
@@ -1593,9 +1881,13 @@ def main():
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "launches": main_launches[n],
          "launches_per_step": launches[n] / N_STEPS, "band_launches": band[n],
-         "trainer_launches": trainer[n], "dtu_trainer_launches": dtu[n], **results[n]}
+         "trainer_launches": trainer[n], "dtu_trainer_launches": dtu[n],
+         "protocol_launches": protocol["run"][n],
+         "protocol_launches_per_iteration": protocol["per_iteration"][n],
+         "protocol_launches_per_val_interval": protocol["per_val_interval"][n],
+         **results[n]}
         for n in SOURCES], "trainer": numbers, "dtu": dtu_numbers, "mesh": mesh_numbers,
-        "vgg": vgg}
+        "vgg": vgg, "protocol": protocol_numbers, "scenes": scenes_numbers}
     line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
         launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)

@@ -22,23 +22,29 @@ def write_scores_tsv(path, scores):
         f.write("\t".join(map("{:.5f}".format, scores.values())) + "\n")
 
 
-def evaluate_run(model, params, test_loader, dataset, run_dir, quali_kwargs=None,
+def evaluate_run(model, params, test_loader, dataset, run_dir, quali=True,
+                 lpips=None, label="", quali_kwargs=None,
                  dtu_dir=DATASETS_PATH / "DTU"):
     """Write the final evaluation artifacts of one scene; returns the final
-    scores. ``quali_kwargs`` go to ``qualitative_eval`` (NV, n_views,
-    render_videos, n_traj_videos). For a DTU dataset the filtered block
-    mesh, in the scan's millimetres (its scale matrix applied), is scored
-    by the official protocol against ``dtu_dir``'s ObsMask and STL points."""
+    scores. ``quali=False`` writes the scores only (and for DTU the
+    protocol's), without ``quali_eval/`` and its gallery (the multi-seed
+    protocol's unselected seeds); ``lpips`` goes to ``quantitative_eval``;
+    ``label`` prefixes the log line; ``quali_kwargs`` go to
+    ``qualitative_eval`` (NV, n_views, render_videos, n_traj_videos). For a
+    DTU dataset the filtered block mesh, in the scan's millimetres (its
+    scale matrix applied), is scored by the official protocol against
+    ``dtu_dir``'s ObsMask and STL points."""
     from . import dtu_eval
     from .export import export_blocks_mesh
     from .quali import qualitative_eval
     from .quant import quantitative_eval
 
     run_dir = path_mkdir(run_dir)
-    qualitative_eval(model, params, test_loader, path_mkdir(run_dir / "quali_eval"),
-                     **(quali_kwargs or {}))
-    scores = quantitative_eval(model, params, test_loader)
-    print_log("final_scores: "
+    if quali:
+        qualitative_eval(model, params, test_loader,
+                         path_mkdir(run_dir / "quali_eval"), **(quali_kwargs or {}))
+    scores = quantitative_eval(model, params, test_loader, lpips=lpips)
+    print_log((f"[{label}] " if label else "") + "final_scores: "
               + ", ".join("{}={:.5f}".format(k, v) for k, v in scores.items()))
     write_scores_tsv(run_dir / "final_scores.tsv", scores)
 
@@ -50,5 +56,6 @@ def evaluate_run(model, params, test_loader, dataset, run_dir, quali_kwargs=None
         dtu_eval.evaluate_mesh(verts, faces, scan_id, Path(dtu_dir), run_dir,
                                save_viz=False)
 
-    gallery_from_run_dir(run_dir / "quali_eval")
+    if quali:
+        gallery_from_run_dir(run_dir / "quali_eval")
     return scores

@@ -20,10 +20,11 @@ def write_mesh_scores(path, scores):
 
 def score_run_mesh(run_dir, evaluator, ckpt="model.pkl", gt_points=None):
     """Rebuild the model of ``run_dir`` from its dumped config yml and
-    ``ckpt`` on the device of ``evaluator`` (a ``MeshEvaluator``), export
-    its filtered block mesh and score it against the dataset's GT points (or
-    ``gt_points``); writes ``mesh_scores.tsv`` into the run directory and
-    returns the scores."""
+    ``ckpt`` (relative to ``run_dir``) on the device of ``evaluator`` (a
+    ``MeshEvaluator``), export its filtered block mesh and score it against
+    the dataset's GT points (or ``gt_points``); writes ``mesh_scores.tsv``
+    beside the checkpoint (a protocol's ``seed{s}/model.pkl`` gets
+    ``seed{s}/mesh_scores.tsv``) and returns the scores."""
     from ..data import get_dataset
     from ..train.checkpoint import load_model_from_checkpoint
     from ..utils.config import load_yaml
@@ -46,5 +47,5 @@ def score_run_mesh(run_dir, evaluator, ckpt="model.pkl", gt_points=None):
                                                   device=device)
     verts, faces = export_blocks_mesh(model, params, filter_transparent=True)
     scores = evaluator.evaluate(verts, faces, pc_gt)
-    write_mesh_scores(run_dir / "mesh_scores.tsv", scores)
+    write_mesh_scores((run_dir / ckpt).parent / "mesh_scores.tsv", scores)
     return scores

@@ -31,14 +31,17 @@ def pad_batch(arr, batch_size):
 
 
 @torch.no_grad()
-def quantitative_eval(model, params, loader):
+def quantitative_eval(model, params, loader, hard_inference=True, lpips=None):
     """The final scores of one scene: an OrderedDict of n_blocks, L_tot,
     L_rec, PSNR, SSIM, the LPIPS column (under ``LPIPSLoss.label``) and
-    alpha0..alpha{N-1}."""
+    alpha0..alpha{N-1}. ``hard_inference=False`` scores the eval phase's
+    ``model.predict`` (the training renderer) in place of the hard 4x
+    render; a given ``lpips`` is used as it is (the multi-seed protocol
+    builds one for all its seeds)."""
     dev = model.device
     opacities = model.get_opacities(params).cpu().numpy()
     n_blocks = model.get_nb_opaque_blocks(params)
-    lpips = LPIPSLoss(
+    lpips = lpips or LPIPSLoss(
         vgg=model.perceptual_loss.vgg if model.perceptual_loss else None, device=dev)
     lpips_col = lpips.label
 
@@ -56,7 +59,10 @@ def quantitative_eval(model, params, loader):
         n = len(inp["imgs"])
         imgs, R, T = (torch.from_numpy(pad_batch(np.asarray(inp[k]), bs or n)[0]).to(dev)
                       for k in ("imgs", "R", "T"))
-        rec = model.renderer_viz.render(scene, R, T)[..., :3]
+        if hard_inference:
+            rec = model.renderer_viz.render(scene, R, T)[..., :3]
+        else:
+            rec = model.predict(params, phase, R, T)[0]
         mse_v = ((imgs - rec) ** 2).mean(dim=(1, 2, 3))[:n]
         ssim_v = (1.0 - ssim_loss(imgs, rec, padding=False))[:n]
         lpips_v = lpips(imgs, rec, reduce=False)[:n]

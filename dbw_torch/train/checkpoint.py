@@ -133,13 +133,7 @@ def write_snapshot(path, snap, epoch, batch, model_name="dbw", model_kwargs=None
         "optimizer_state": (None if states is None
                             else _adam_states_to_jax(states, copy)),
     }
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
-    with open(tmp, "wb") as f:
-        _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
-    tmp.replace(path)  # a reader never sees a half-written file
-    return path
+    return write_pickle(path, state)
 
 
 def save_checkpoint(path, params: dict, optimizer, epoch, batch,
@@ -153,8 +147,7 @@ def load_checkpoint(path):
     """Read ``model.pkl`` (written here or by the JAX package). Returns the
     dict with ``model_state`` as {name: numpy array} (the reference's
     ``spq_`` prefix renamed to ``sq_``)."""
-    with open(path, "rb") as f:
-        state = _Unpickler(f).load()
+    state = read_pickle(path)
     ms = state["model_state"]
     ms = ms._asdict() if isinstance(ms, SceneParams) else dict(ms)
     state["model_state"] = {k.replace("spq_", "sq_"): v for k, v in ms.items()}
@@ -170,6 +163,48 @@ def restore(state, params: dict, optimizer=None):
                 np.asarray(state["model_state"][k], np.float32)))
     if optimizer is not None and state.get("optimizer_state") is not None:
         adam_state_from_jax(state["optimizer_state"], optimizer, params)
+
+
+def stacked_to_jax(snap, lead_shape):
+    """A ``snapshot`` of stacked leaves (lead_shape + the leaf's shape) ->
+    (params, opt_state) in the JAX protocol checkpoints' layout: a
+    SceneParams of stacked arrays and a ScaleByAdamState whose ``count``
+    has the shape ``lead_shape`` (every slot at the same step)."""
+    copy, states = snap
+    params = SceneParams(**scene_params_to_numpy(copy))
+    adam = _adam_states_to_jax(states, copy)
+    count = np.full(tuple(lead_shape), int(adam.count), np.int32)
+    return params, adam._replace(count=count)
+
+
+def restore_stacked(params_state, opt_state, params: dict, optimizer):
+    """Copy a protocol checkpoint's stacked params (a SceneParams or dict
+    of arrays) and its Adam state (``count`` of the stacked shape, equal in
+    every slot) into ``params`` and ``optimizer``."""
+    ms = params_state._asdict() if isinstance(params_state, SceneParams) else params_state
+    counts = np.unique(np.asarray(opt_state.count))
+    if len(counts) != 1:
+        raise ValueError(f"slots at different Adam steps: {counts.tolist()}")
+    restore({"model_state": ms, "optimizer_state": ScaleByAdamState(
+        counts[0], opt_state.mu, opt_state.nu)}, params, optimizer)
+
+
+def write_pickle(path, state):
+    """Pickle ``state`` (the JAX side's class references for the stand-ins)
+    to ``path`` through a temporary file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
+    tmp.replace(path)  # a reader never sees a half-written file
+    return path
+
+
+def read_pickle(path):
+    """Read a pickle written here or by the JAX package, without JAX."""
+    with open(path, "rb") as f:
+        return _Unpickler(f).load()
 
 
 def load_model_from_checkpoint(path, img_size, device=DEFAULT_DEVICE, **overrides):

@@ -1,0 +1,434 @@
+"""Multi-seed protocol on one card (PyTorch port of
+dbw_tpu/train/multi_seed.py; the reference's multi_pipeline.sh: several
+seeded runs of one scene, then selection of the lowest train loss).
+
+    python3 scripts/torch_multi_pipeline.py -t TAG -c synthetic/dtu_shaped.yml \\
+        --seeds 11 22 33 44 55 [--cpu]
+
+The S seeds' parameters are stacked leaves (S, ...) under one torch Adam
+with the texture group, and each step runs the seeds one after the other
+on the same views (``parallel/seeds.py``). Slot s draws from a generator
+seeded by ``step_seed(seed_s, step counter)``, as the port Trainer does,
+and both take their batches from a loader seeded 0: slot s of a protocol
+run is the port Trainer's run with ``training.seed = seed_s``.
+
+The loop keeps the JAX protocol's schedule: groups of ``steps_per_call``
+batches (a ragged tail at the end of an epoch) whose steps run one after
+the other, the log, val and save actions at the groups' boundaries, the
+per-epoch LRs and curriculum phase, and the per-seed running train loss
+weighted by each batch's real views. A val interval logs each seed's
+opacities, marks a seed whose blocks are all below 0.01 dead (left out of
+selection; every seed dead raises ``RuntimeError("No more blocks....")``),
+renders the current best live seed on the viz views and writes
+``multi_model.pkl``.
+
+The run directory is the JAX protocol's: ``train_metrics.tsv``
+(``loss_s{seed}``), ``seed{s}/val_metrics.tsv``, ``reconstructions_best/``,
+``multi_model.pkl``, and at the end ``seed{s}/model.pkl``, the best seed's
+``model.pkl`` and ``seed_selection.tsv``; ``evaluate`` adds each seed's
+``final_scores.tsv`` and the best seed's full evaluation.
+
+``multi_model.pkl`` has the JAX layout (params as a SceneParams of (S, ...)
+arrays, opt_state as optax's ScaleByAdamState with an (S,) count, the
+cursor and the bookkeeping), so each package resumes the other's file. The
+port's random state is its step counter ``step_ctr``, in place of JAX's
+``key``: ``jax.random`` cannot be replayed (ROADMAP.md §3, standing). The
+file also holds a ``key``, the one a fresh JAX protocol starts from, so
+that the JAX package can resume it (its draws from there on are its own);
+a JAX-written file resumes here with the counter of its cursor.
+
+Left out, as TPU machinery: the AOT cache, the device packer, the
+device-resident dataset and the scanned multi-step; and the device mesh:
+``n_data`` or ``n_spatial`` above 1 raise on one card, as the JAX package's
+do on one device.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..data import create_train_val_test_loader
+from ..eval.metrics import Metrics
+from ..parallel.seeds import seed_step, select_best_seed, slot, stacked_leaves
+from ..render.trajectory import to_u8
+from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.image import ImageLogger
+from ..utils.logger import print_log
+from ..utils.misc import path_mkdir, use_seed
+from . import checkpoint as ck
+from .optimizer import create_optimizer
+from .scheduler import base_lrs, create_scheduler, set_lrs
+from .trainer import _HostWorker, _pad_ids, create_model, gather_views, step_seed
+
+MULTI_CKPT = "multi_model.pkl"
+
+
+def jax_key(seed):
+    """The raw uint32 pair of ``jax.random.PRNGKey(seed)`` (threefry),
+    0 <= seed < 2**32."""
+    return np.array([0, seed], np.uint32)
+
+
+def slot_snapshot(snap, i):
+    """Slot i of a ``checkpoint.snapshot`` of stacked leaves."""
+    copy, states = snap
+    return ({k: v[i] for k, v in copy.items()},
+            {k: {f: (v[i] if f != "step" else v) for f, v in st.items()}
+             for k, st in states.items()})
+
+
+def check_one_card(n_data, n_spatial):
+    """The JAX package's validation of the mesh axes, on one card."""
+    if n_data is not None and n_data < 1:
+        raise ValueError(f"n_data must be >= 1, got {n_data}")
+    if n_spatial is not None and int(n_spatial) < 1:
+        raise ValueError(f"n_spatial must be >= 1, got {n_spatial}")
+    if n_data is not None and n_data > 1:
+        raise ValueError(f"n_data={n_data} requested but only 1 device present")
+    if n_spatial is not None and int(n_spatial) > 1:
+        raise ValueError(f"n_spatial={n_spatial} requested but only 1 device present")
+
+
+class MultiSeedTrainer:
+    """Trains S seeds of one scene together; selects the lowest train
+    loss."""
+
+    def __init__(self, cfg, run_dir, seeds=None, resume=False, n_data=None,
+                 n_spatial=None, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # TF32 off, as in the port Trainer
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        check_one_card(n_data, n_spatial)
+        self.run_dir = path_mkdir(run_dir)
+        self.cfg = cfg
+        ckpt = None
+        if resume:
+            path = self.run_dir / MULTI_CKPT
+            if not path.exists():
+                raise FileNotFoundError(f"resume requested but {path} does not exist")
+            ckpt = ck.read_pickle(path)
+            seeds = ckpt["orig_seeds"]
+            print_log(f"[multi-seed] resuming from {path}: epoch={ckpt['epoch']}, "
+                      f"batch={ckpt['batch']}, seeds={seeds}")
+        self.orig_seeds = [int(s) for s in seeds]
+        self.seeds = list(self.orig_seeds)
+        self.n_valid = len(self.seeds)
+        tcfg = cfg["training"]
+        self.batch_size = tcfg.get("batch_size", 4)
+        S = len(self.seeds)
+        self.train_loader, self.val_loader, self.test_loader = (
+            create_train_val_test_loader(cfg, device=self.device))
+        self.dataset = self.train_loader.dataset
+        self.model = create_model(cfg, self.dataset.img_size, self.device)
+        self.model.set_camera(self.dataset.K[0])
+        self.n_epoches = tcfg["n_epoches"]
+        self.n_batches = len(self.train_loader)
+        self.steps_per_call = int(tcfg.get("steps_per_call", 1))
+        self.train_stat_interval = tcfg.get("train_stat_interval", 0)
+        self.val_stat_interval = tcfg.get("val_stat_interval", 0)
+
+        self.params = stacked_leaves([self.model.init_params(seed=s) for s in self.seeds])
+        self.optimizer = create_optimizer(cfg, self.params)
+        self.scheduler = create_scheduler(cfg, base_lrs(self.optimizer))
+        self.dead = np.zeros(S, bool)
+        self.epoch_start, self.batch_start = 1, 1
+        self.loss_sums, self.n_seen = np.zeros(S), 0
+        if ckpt is not None:
+            self._restore(ckpt)
+        # the global step counter the per-step generators are seeded by
+        self._step_ctr = (self.epoch_start - 1) * self.n_batches + self.batch_start - 1
+        if ckpt is not None and int(ckpt.get("step_ctr", self._step_ctr)) != self._step_ctr:
+            raise ValueError(f"checkpoint step_ctr {ckpt['step_ctr']} does not match "
+                             f"its cursor ({self._step_ctr} steps)")
+        # replay the uninterrupted batch order after a resume
+        self.train_loader.set_epoch(self.epoch_start - 1)
+
+        append = self.epoch_start > 1 or self.batch_start > 1
+        resume_iter = (self.epoch_start - 1) * self.n_batches + self.batch_start - 1
+        self.train_metrics = Metrics(
+            *[f"loss_s{s}" for s in self.orig_seeds],
+            log_file=self.run_dir / "train_metrics.tsv", append=append,
+            truncate_iter=resume_iter)
+        alpha_names = [f"alpha{k}" for k in range(self.model.n_blocks)]
+        self.val_metrics = [
+            Metrics(*alpha_names,
+                    log_file=path_mkdir(self.run_dir / f"seed{s}") / "val_metrics.tsv",
+                    append=append, truncate_iter=resume_iter)
+            for s in self.orig_seeds]
+
+        # the evolution stream of the current best seed on the viz views
+        self.viz = bool(tcfg.get("multi_seed_viz", True))
+        if self.viz:
+            with use_seed(12345):
+                src = self.val_loader if len(self.val_loader) > 0 else self.train_loader
+                samples, _ = next(iter(src))
+            self.viz_samples = {k: v[:4] for k, v in samples.items()}
+            self.rec_logger = ImageLogger(self.run_dir / "reconstructions_best",
+                                          self.viz_samples)
+            self._viz_R = torch.from_numpy(self.viz_samples["R"]).to(self.device)
+            self._viz_T = torch.from_numpy(self.viz_samples["T"]).to(self.device)
+        self._host = _HostWorker()
+        self._loss_buffer = []  # ((S,) device tensor, n_real) per step
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume
+    # ------------------------------------------------------------------
+
+    def save(self, epoch, batch):
+        """``multi_model.pkl``: every slot's parameters and Adam state, the
+        cursor and the bookkeeping; a detached copy now, the pickle on the
+        host worker."""
+        snap = ck.snapshot(self.params, self.optimizer)
+        meta = {
+            "epoch": epoch, "batch": batch,
+            "orig_seeds": list(self.orig_seeds), "seeds": list(self.seeds),
+            "n_valid": self.n_valid, "step_ctr": self._step_ctr,
+            "key": jax_key(max(self.seeds) + 1), "dead": self.dead.copy(),
+            "loss_sums": self.loss_sums.copy(), "n_seen": self.n_seen,
+            "model_kwargs": self.cfg.get("model", {}),
+        }
+        lead = (len(self.seeds),)
+
+        def _write():
+            params, opt_state = ck.stacked_to_jax(snap, lead)
+            ck.write_pickle(self.run_dir / MULTI_CKPT,
+                            dict(meta, params=params, opt_state=opt_state))
+
+        self._host.submit(_write, fatal=True)
+
+    def _restore(self, ckpt):
+        if [int(s) for s in ckpt["seeds"]] != self.seeds:
+            raise ValueError("resume on a different device topology: checkpoint seed "
+                             f"slots {list(ckpt['seeds'])} != current {self.seeds}")
+        ck.restore_stacked(ckpt["params"], ckpt["opt_state"], self.params, self.optimizer)
+        self.dead = np.asarray(ckpt["dead"], bool).copy()
+        self.loss_sums = np.asarray(ckpt["loss_sums"], np.float64).copy()
+        self.n_seen = int(ckpt["n_seen"])
+        if ckpt["batch"] >= self.n_batches:
+            self.epoch_start, self.batch_start = ckpt["epoch"] + 1, 1
+        else:
+            self.epoch_start, self.batch_start = ckpt["epoch"], ckpt["batch"] + 1
+
+    # ------------------------------------------------------------------
+    # interval actions
+    # ------------------------------------------------------------------
+
+    def _masked_losses(self, losses):
+        """Padded and dead slots get inf: they are never selected."""
+        live = (np.arange(len(self.seeds)) < self.n_valid) & ~self.dead
+        return np.where(live, losses, np.inf)
+
+    def _val_and_log(self, it, epoch, batch):
+        """Per-seed opacity streams and the dead-seed rule (the reference
+        Trainer's per run)."""
+        alphas = np.stack([self.model.get_opacities(slot(self.params, i)).cpu().numpy()
+                           for i in range(len(self.seeds))])
+        alive = (alphas > 0.01).sum(axis=1) > 0
+        for i in range(self.n_valid):
+            if not alive[i] and not self.dead[i]:
+                self.dead[i] = True
+                print_log(f"[multi-seed] seed {self.seeds[i]} has no more blocks at "
+                          f"epoch {epoch}, excluded from selection")
+            self.val_metrics[i].update({f"alpha{k}": float(a)
+                                        for k, a in enumerate(alphas[i])})
+            self.val_metrics[i].log_and_reset(it=it, epoch=epoch, batch=batch)
+        if self.dead[: self.n_valid].all():
+            raise RuntimeError("No more blocks....")
+        if self.viz:
+            self._log_best_recon(it, epoch)
+
+    @torch.no_grad()
+    def _log_best_recon(self, it, epoch):
+        """The current best (lowest running loss) live seed's render of the
+        viz views (``model.predict`` in the eval phase, as the JAX
+        protocol); the encoding runs on the host worker."""
+        best = int(np.argmin(self._masked_losses(self.loss_sums)))
+        phase = self.model.phase_for_epoch(epoch - 1, training=False)
+        rec = self.model.predict(slot(self.params, best), phase, self._viz_R,
+                                 self._viz_T)[0]
+        rec = to_u8(rec).cpu().numpy()
+        self._host.submit(lambda: self.rec_logger.save(rec, it))
+
+    def _log_train(self, it, epoch, batch):
+        print_log(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
+                  f"batch {batch}/{self.n_batches} "
+                  f"train_metrics: {self.train_metrics}"[:1000])
+        self.train_metrics.log_and_reset(it=it, epoch=epoch, batch=batch)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _train_step(self, ids):
+        """One Adam step of every seed on the views ``ids``."""
+        idx, n_real = _pad_ids(ids, self.batch_size)
+        imgs, R, T = gather_views(self.dataset, idx, self.device)
+        gens = [torch.Generator(device=self.device).manual_seed(
+            step_seed(s, self._step_ctr)) for s in self.seeds]
+        self._step_ctr += 1
+        losses = seed_step(self.model, self.params, self.optimizer, self.phase,
+                           imgs, R, T, gens)
+        # no sync here: the losses stay on the device until an interval
+        self._loss_buffer.append((losses, n_real))
+
+    def _run_group(self, group):
+        """A group of (batch, view ids), one step after the other."""
+        for _, ids in group:
+            self._train_step(ids)
+
+    def run(self):
+        try:
+            return self._run()
+        except BaseException:
+            # the checkpoint saved before the exception must land: a killed
+            # protocol resumes from it
+            self._host.join(raise_fatal=False)
+            raise
+        finally:
+            self._host.close()
+
+    def _run(self):
+        t0 = time.time()
+        for epoch in range(self.epoch_start, self.n_epoches + 1):
+            self.phase = self.model.phase_for_epoch(epoch - 1, training=True)
+            set_lrs(self.optimizer, self.scheduler.lrs(epoch - 1))
+            if epoch != self.epoch_start or self.batch_start == 1:
+                # buffered losses belong to the previous epoch's accounting
+                self._drain_losses()
+                self.loss_sums[:] = 0.0
+                self.n_seen = 0
+            batch_start = self.batch_start if epoch == self.epoch_start else 1
+            cur_iter = (epoch - 1) * self.n_batches + batch_start
+            SPC = max(self.steps_per_call, 1)
+            pending = []
+            for batch, ids in enumerate(self.train_loader.iter_indices(), start=1):
+                if batch < batch_start:
+                    continue
+                pending.append((batch, ids))
+                if len(pending) < SPC:
+                    continue
+                cur_iter = self._flush(pending, cur_iter, epoch)
+                pending = []
+            if pending:
+                cur_iter = self._flush(pending, cur_iter, epoch)
+            if epoch % max(self.n_epoches // 10, 1) == 0 or epoch == 1:
+                self._drain_losses()
+                means = self.loss_sums / max(self.n_seen, 1)
+                print_log(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
+                          f"losses={np.round(means, 5).tolist()} "
+                          f"({time.time() - t0:.1f}s)")
+
+        self._drain_losses()
+        final_losses = self.loss_sums / max(self.n_seen, 1)
+        best_params, best = select_best_seed(self.params,
+                                             self._masked_losses(final_losses))
+        self.best = best
+        print_log(f"[multi-seed] final per-seed loss="
+                  f"{final_losses[: self.n_valid].round(5).tolist()}"
+                  f" -> auto-selected seed {self.seeds[best]} (min train loss)")
+        self.save(self.n_epoches, self.n_batches)
+        snap = ck.snapshot(self.params, self.optimizer)
+        kw = self.cfg.get("model", {})
+        for i, s in enumerate(self.seeds[: self.n_valid]):
+            ck.write_snapshot(self.run_dir / f"seed{s}" / "model.pkl",
+                              slot_snapshot(snap, i), self.n_epoches, self.n_batches,
+                              model_kwargs=kw)
+        ck.write_snapshot(self.run_dir / "model.pkl", slot_snapshot(snap, best),
+                          self.n_epoches, self.n_batches, model_kwargs=kw)
+        write_seed_selection(self.run_dir / "seed_selection.tsv",
+                             self.seeds[: self.n_valid], final_losses, self.dead, best)
+        self._host.join()  # the checkpoint and viz frames on disk before the video
+        if self.viz:
+            try:
+                self.rec_logger.save_video()
+            except Exception as e:  # the video is cosmetic
+                print_log(f"[multi-seed] evolution video failed: {e}")
+        return best_params, self.seeds[best], final_losses[: self.n_valid]
+
+    def _drain_losses(self):
+        """Pull the buffered per-step losses in one transfer into the
+        per-seed running sums, each step weighted by its batch's real views
+        (a ragged tail's pad views repeat its last view)."""
+        if not self._loss_buffer:
+            return
+        buf, self._loss_buffer = self._loss_buffer, []
+        rows = torch.stack([v for v, _ in buf]).cpu().numpy()
+        for row, (_, n_real) in zip(rows, buf):
+            self.loss_sums[:] = self.loss_sums + row * n_real
+            self.n_seen += n_real
+            self.train_metrics.update({f"loss_s{s}": float(row[j])
+                                       for j, s in enumerate(self.orig_seeds)}, N=n_real)
+
+    def _flush(self, pending, cur_iter, epoch):
+        """Run a group and fire the interval actions it crossed."""
+        self._run_group(pending)
+        last_batch = pending[-1][0]
+        do_log = do_val = False
+        for _ in pending:
+            if self.train_stat_interval:
+                do_log |= cur_iter % self.train_stat_interval == 0
+            if self.val_stat_interval:
+                do_val |= cur_iter % self.val_stat_interval == 0
+            cur_iter += 1
+        if do_log:
+            self._drain_losses()
+            self._log_train(cur_iter - 1, epoch, last_batch)
+        if do_val:
+            self._drain_losses()  # selection state must be current
+            self._val_and_log(cur_iter - 1, epoch, last_batch)
+            self.save(epoch, last_batch)
+        return cur_iter
+
+    # ------------------------------------------------------------------
+    # final evaluation
+    # ------------------------------------------------------------------
+
+    def evaluate(self, per_seed_full=False, quali_kwargs=None):
+        """``final_scores.tsv`` for every seed in ``seed{s}/`` (the full
+        evaluation with ``per_seed_full``), and the best seed's full
+        evaluation in the run directory; one LPIPS for all."""
+        assert hasattr(self, "best"), "evaluate() requires a finished run()"
+        seeds = self.seeds[: self.n_valid]
+        scores = evaluate_slots(
+            self.model, self.cfg, self.test_loader, self.dataset,
+            [(slot(self.params, i), self.run_dir / f"seed{s}", per_seed_full, f"seed{s}")
+             for i, s in enumerate(seeds)]
+            + [(slot(self.params, self.best), self.run_dir, True,
+                f"best=seed{self.seeds[self.best]}")],
+            quali_kwargs, shared_lpips(self.model))
+        return dict(zip(seeds + ["best"], scores))
+
+
+def shared_lpips(model):
+    """One ``LPIPSLoss`` on the model's VGG16 features, for every slot's
+    evaluation."""
+    from ..losses.vgg import LPIPSLoss
+
+    return LPIPSLoss(vgg=model.perceptual_loss.vgg if model.perceptual_loss else None,
+                     device=model.device)
+
+
+def evaluate_slots(model, cfg, test_loader, dataset, jobs, quali_kwargs, lpips):
+    """``evaluate_run`` for each (params, run_dir, quali, label) of
+    ``jobs``; a DTU scan read from a configured ``dataset.root`` is scored
+    against that root. -> [scores per job]."""
+    from ..eval.full import evaluate_run
+
+    root = cfg["dataset"].get("root")
+    kw = {"dtu_dir": root} if root else {}
+    return [evaluate_run(model, params, test_loader, dataset, run_dir, quali=quali,
+                         lpips=lpips, label=label, quali_kwargs=quali_kwargs, **kw)
+            for params, run_dir, quali, label in jobs]
+
+
+def write_seed_selection(path, seeds, final_losses, dead, best):
+    """``seed_selection.tsv``, the JAX protocol's format."""
+    with open(path, "w") as f:
+        f.write("seed\tfinal_train_loss\tdead\tselected\n")
+        for i, s in enumerate(seeds):
+            f.write(f"{s}\t{final_losses[i]:.6f}\t{int(dead[i])}\t{int(i == best)}\n")

@@ -113,6 +113,22 @@ def step_seed(seed, counter, stream=0):
                .generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
+def _pad_ids(ids, batch_size):
+    """Pad a ragged last batch's view ids to the batch size with its last
+    view. -> (ids, number of real views)."""
+    ids = np.asarray(ids, np.int64)
+    n = len(ids)
+    if n < batch_size:
+        ids = np.concatenate([ids, np.repeat(ids[-1:], batch_size - n)])
+    return ids, n
+
+
+def gather_views(dataset, idx, device):
+    """The views ``idx`` of a dataset as (imgs, R, T) tensors on ``device``."""
+    return tuple(torch.from_numpy(a[idx]).to(device, non_blocking=True)
+                 for a in (dataset.imgs, dataset.R, dataset.T))
+
+
 def create_model(cfg, img_size, device=DEFAULT_DEVICE):
     kw = dict(cfg["model"])
     name = kw.pop("name", "dbw")
@@ -253,21 +269,11 @@ class Trainer:
             self._epoch_consts_cache = (e, phase, lrs)
         return self._epoch_consts_cache[1], self._epoch_consts_cache[2]
 
-    def _pad_ids(self, ids):
-        """Pad a ragged last batch to the batch size with its last view."""
-        ids = np.asarray(ids, np.int64)
-        n = len(ids)
-        if n < self.batch_size:
-            ids = np.concatenate([ids, np.repeat(ids[-1:], self.batch_size - n)])
-        return ids, n
-
     def _train_step(self, ids):
         """One Adam step on the views ``ids``."""
-        idx, n_real = self._pad_ids(ids)
+        idx, n_real = _pad_ids(ids, self.batch_size)
         phase, _ = self._epoch_consts()
-        ds = self.dataset
-        imgs, R, T = (torch.from_numpy(a[idx]).to(self.device, non_blocking=True)
-                      for a in (ds.imgs, ds.R, ds.T))
+        imgs, R, T = gather_views(self.dataset, idx, self.device)
         gen = torch.Generator(device=self.device).manual_seed(
             step_seed(self.seed, self._step_ctr))
         self._step_ctr += 1

@@ -10,8 +10,10 @@ checkpoint, exports the filtered block mesh and scores it against the
 dataset's GT points (or the points of ``--gt-ply``) with the port's
 MeshEvaluator: chamfer-L1 (x10) and, with GT normals, normal consistency,
 before and after gradient ICP. ``--fast-cpu`` takes the evaluator's small
-setting (50,000 samples, 30 ICP steps). Writes ``mesh_scores.tsv`` into the
-run directory and prints the scores. Runs on the card unless ``--cpu``.
+setting (50,000 samples, 30 ICP steps). Writes ``mesh_scores.tsv`` beside
+the checkpoint (``--ckpt seed11/model.pkl`` of a protocol run writes
+``seed11/mesh_scores.tsv``) and prints the scores. Runs on the card unless
+``--cpu``.
 """
 
 import argparse

@@ -33,6 +33,8 @@ MODULES = [
     "dbw_torch.losses.chamfer", "dbw_torch.eval.icp", "dbw_torch.eval.ransac",
     "dbw_torch.eval.dtu_eval", "dbw_torch.eval.mesh_scores", "dbw_torch.data.dtu",
     "dbw_torch.data.bmvs", "dbw_torch.data.scan_writer", "dbw_torch.native",
+    "dbw_torch.parallel", "dbw_torch.parallel.seeds", "dbw_torch.parallel.scenes",
+    "dbw_torch.train.multi_seed", "dbw_torch.train.multi_scene",
 ]
 BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
        "('jax', 'jaxlib', 'optax', 'dbw_tpu'))")
