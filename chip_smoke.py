@@ -75,7 +75,27 @@ Phases, one line each (or a few):
    scenes of the shipped config (dataset seeds 3 and 5, two training
    seeds), full width, 1 seed each, 2 epochs, evaluate(quali=False): each
    run directory's files, finite losses that differ between the scenes,
-   seed-steps/s.
+   seed-steps/s;
+13. lit: the shipped config at full width with only the renderer's
+   shading_type (flat, gouraud, phong), lights (directional, point) and
+   cameras (fov) overridden takes 3 Adam steps of each lit type: finite
+   losses, K1 (soft and hard) and K4 launched in every step and no other
+   kernel (the lit path interpolates in tensor code, as the JAX package
+   does); K1 and K4 against their plain twins at the lit path's shapes
+   (blocks pass: K1 soft slot for slot, K4; env pass: K1 hard, K4; K4 on
+   the valid fragments, which are all that the lit path shades) and a
+   profiler trace of the phong step;
+   then 3 steps with each of the six other optimizers, 2 steps with each
+   RGB criterion, and a model.pkl resume of adamw that reproduces the next
+   step;
+14. nerfstudio: a capture in nerfstudio's transforms.json layout written
+   into a temporary directory (49 views of the port's synthetic scene
+   rendered on the card at 600x800, OpenGL camera-to-world matrices,
+   fl_x/fl_y/cx/cy and a point_cloud.ply), then the Trainer on
+   configs/nerfstudio/campanile.yml at full width (only dataset.root,
+   n_epoches, the stat intervals and the final eval's video knobs
+   overridden; downscale_factor 2 gives 300x400) through the final eval:
+   every artifact, finite losses and scores, every kernel launched.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -173,6 +193,26 @@ PROTOCOL_RTOL_FLOOR = 2e-5
 # the scenes phase: two synthetic scenes of the shipped config
 SCENE_DATASET_SEEDS = (3, 5)
 SCENES_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20)
+# the lit phase: the shipped config with the renderer's shading_type, lights
+# and cameras overridden; 3 steps of each (shading, light) case. The lit path
+# launches K1 (soft blocks, hard env) and K4 only
+LIT_CASES = (("flat", "directional"), ("gouraud", "point"), ("phong", "directional"))
+LIT_LIGHTS = {"directional": dict(name="directional", direction=[[1.0, 0.25, -1.0]]),
+              "point": dict(name="point", location=[[0.5, 2.0, -2.5]])}
+LIT_KERNELS = ("K1_select", "K1_select_hard", "K4_texel_grad")
+N_LIT_STEPS = 3
+OTHER_OPTIMIZERS = ("sgd", "adamw", "adamax", "rmsprop", "adagrad", "adadelta")
+CRITERIA = ("bce", "mse", "l2", "l1", "huber", "perceptual", "lpips", "ssim")
+N_CRITERION_STEPS = 2
+RESUME_OPTIMIZER = "adamw"
+# the nerfstudio phase: configs/nerfstudio/campanile.yml with these training
+# keys and dataset.root overridden; 49 views written at 600x800 load at
+# 300x400 (downscale_factor 2); 2 epochs of 13 batches are 26 steps, one at
+# a time (the config sets no steps_per_call), the val interval at 20
+NS_CONFIG = ROOT / "configs" / "nerfstudio" / "campanile.yml"
+NS_CAPTURE_SIZE = (600, 800)
+NS_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20,
+                    eval=dict(n_traj_videos=1, NV=10))
 # the written scan: a millimetre world (DTU's scale matrices scale by ~200
 # and move the origin by a few hundred mm), ~1 M GT points
 DTU_SCALE_MAT = np.array([[200.0, 0, 0, -10.0], [0, 200.0, 0, 35.0],
@@ -276,10 +316,10 @@ def load_cfg():
 
 
 def make_model(cfg, device, img_size=None, mesh=None, renderer=None,
-               rend_optim=None, K=K_NDC, vgg_dtype=None):
+               rend_optim=None, K=K_NDC, vgg_dtype=None, loss=None):
     """BlocksWorld from the config's model section (+ overrides of its mesh,
-    renderer and rend_optim keys) with the flagship camera; VGG16 features
-    in ``vgg_dtype`` (None: the device's default)."""
+    renderer, rend_optim and loss keys) with the flagship camera; VGG16
+    features in ``vgg_dtype`` (None: the device's default)."""
     from dbw_torch.losses.vgg import VGG16Features
     from dbw_torch.models.dbw import BlocksWorld
 
@@ -288,6 +328,7 @@ def make_model(cfg, device, img_size=None, mesh=None, renderer=None,
     m["mesh"].update(mesh or {})
     m["renderer"].update(renderer or {})
     m["rend_optim"].update(rend_optim or {})
+    m["loss"].update(loss or {})
     vgg = None
     if vgg_dtype is not None:
         vgg = VGG16Features.from_env_or_random(
@@ -1813,6 +1854,230 @@ def phase_scenes(device):
                 iterations=n_iter, final_losses=losses.ravel().tolist())
 
 
+def check_lit_pass(checks, path, rend, scene, R, T, gen, sigma=None):
+    """K1 (soft, or hard for the env renderer) and K4 against their plain
+    twins on the fragments of a lit renderer's pass, formed as
+    Renderer.shade_lit forms them (the valid fragments' flat attributes, the
+    uv interpolated from the corner table, the texel coordinates). The plain
+    K1 twin is timed over fewer calls (it takes ~0.1 s a call)."""
+    from dbw_torch.render import rasterize as rz
+    from dbw_torch.render.fragment import texel_coords
+    from dbw_torch.render.interpolate import interp_corner_table, interpolate_fragments_flat
+
+    hard = sigma is None and float(rend.config.sigma) == 0.0
+    _, blur = rend.sigma_blur(sigma)
+    geom = rz.project_faces(scene.verts, scene.faces, R, T, rend.camera,
+                            z_clip=rend.config.z_clip)
+    packed = rz.pack_faces(geom)
+    rcfg = rend.config.raster_config()
+    rcfg_plain = rcfg._replace(row_chunk=50)
+    K = rcfg.faces_per_pixel
+    name = "K1_select_hard" if hard else "K1_select"
+    p2f = rz.rasterize_cuda(packed, blur, rcfg, hard=hard)
+    ref = rz.rasterize_plain(packed, blur, rcfg_plain)
+    dz, ok = check_selection(f"K1 select{' hard' if hard else ''} [{path}, "
+                             f"F={packed.shape[1]}, K={K}]", p2f, ref, packed, blur, rcfg)
+    checks.setdefault(name, []).append(dict(
+        path=path, max_abs_err=dz, ok=ok,
+        ms=cuda_ms(lambda: rz.rasterize_cuda(packed, blur, rcfg, hard=hard)),
+        plain_ms=cuda_ms(lambda: rz.rasterize_plain(packed, blur, rcfg_plain),
+                         runs=2, pairs=3),
+        library_ms=None, device_ms=None, **k1_bound(packed, p2f, blur, rcfg)))
+
+    # the valid fragments only, in the K = 1 layout, as shade_lit shades them
+    sel = torch.nonzero(p2f.reshape(-1) >= 0).squeeze(1)
+    ff = interpolate_fragments_flat(p2f, geom, rcfg, detach_bary=True, select=sel)
+    F = scene.faces.shape[0]
+    uv = interp_corner_table(ff, scene.uv_verts[scene.uv_faces].reshape(F, 6))
+    M, TH, TW = scene.atlas.maps.shape[:3]
+    id00, wx, wy = texel_coords(uv[:, 0], uv[:, 1], scene.map_idx[ff.idx], TH, TW)
+    g = torch.randn((id00.numel(), 3), generator=gen, device=id00.device)
+    check_texel_grad(checks, path, id00.contiguous(), wx.contiguous(), wy.contiguous(), g,
+                     M * TH * TW, TW, 1)
+
+
+def resume_step_check(cfg, device, name):
+    """2 steps with optimizer ``name``, a model.pkl round trip into fresh
+    parameters and optimizer, then the next step from both (the same
+    gradient): the state equal after the reload, the parameters equal
+    after the step."""
+    from dbw_torch.train import checkpoint as ck
+    from dbw_torch.train.optimizer import create_optimizer
+
+    ocfg = copy.deepcopy(cfg)
+    ocfg["training"]["optimizer"]["name"] = name
+    model = make_model(cfg, device)
+    params = model.init_params(seed=0)
+    opt = create_optimizer(ocfg, params)
+    run_steps(f"lit resume {name}", model, params, opt, 2, STEP_KERNELS, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ck.save_checkpoint(Path(tmp) / "model.pkl", params, opt, 1, 2,
+                                  model_kwargs=cfg["model"])
+        state = ck.load_checkpoint(path)
+    params2 = model.init_params(seed=1)
+    opt2 = create_optimizer(ocfg, params2)
+    ck.restore(state, params2, opt2)
+    same_state = all(torch.equal(params[k], params2[k]) for k in params) and all(
+        (torch.equal(v, opt2.state[params2[k]][f]) if torch.is_tensor(v)
+         else v == opt2.state[params2[k]][f])
+        for k in params for f, v in opt.state[params[k]].items())
+    imgs = torch.from_numpy(np.random.default_rng(5).random(
+        (N_VIEWS,) + IMG_SIZE + (3,), np.float32)).to(device)
+    R, T = cameras(N_VIEWS, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    opt.zero_grad(set_to_none=True)
+    model.forward(params, model.phase_for_epoch(0), imgs, R, T, generator=gen)["total"].backward()
+    for k in params:
+        params2[k].grad = params[k].grad.clone()
+    opt.step()
+    opt2.step()
+    same_params = all(torch.equal(params[k], params2[k]) for k in params)
+    say("lit", f"model.pkl round trip with {name} ({type(opt).__name__}, state fields "
+        f"{sorted(opt.state[params['T']])}): state equal {same_state}; the next step's "
+        f"parameters equal {same_params}")
+    if not (same_state and same_params):
+        raise SystemExit(f"lit: the {name} checkpoint does not reproduce the step")
+
+
+def phase_lit(cfg, device):
+    """The lit config surface at full width: each lit (shading, light) case
+    with the fov camera for N_LIT_STEPS steps, K1 and K4 held at the lit
+    path's shapes, the six other optimizers, the RGB criteria and a
+    non-Adam resume. Returns (the lit steps' launches summed, their step
+    count, the lit checks, the phase's numbers)."""
+    from dbw_torch.train.optimizer import create_optimizer
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in SOURCES}
+    checks, numbers = {}, {"step_ms": {}}
+    for shading, light in LIT_CASES:
+        model = make_model(cfg, device, renderer=dict(
+            shading_type=shading, lights=copy.deepcopy(LIT_LIGHTS[light]),
+            cameras=dict(name="fov")))
+        rc = model.renderer.config
+        say("lit", f"{shading} shading, {light} light ({rc.light_type}, ambient "
+            f"{rc.ambient_color}, diffuse {rc.diffuse_color}), camera {model.camera} (fov "
+            f"60, the dataset K ignored); env and viz renderers {model.renderer_env.config.shading}"
+            f"/{model.renderer_viz.config.shading}")
+        params = model.init_params(seed=0)
+        opt = create_optimizer(cfg, params)
+        got, times = run_steps(f"lit {shading}", model, params, opt, N_LIT_STEPS,
+                               LIT_KERNELS, device)
+        numbers["step_ms"][shading] = 1e3 * float(np.median(times[1:]))
+        for k in launches:
+            launches[k] += got[k]
+        if shading == "phong":
+            say("lit", "the phong lit step under torch.profiler ([profile] lines):")
+            profile_steps(model, params, opt, device)
+            gen = torch.Generator(device=device).manual_seed(13)
+            R, T = cameras(N_VIEWS, device)
+            phase = model.phase_for_epoch(0)
+            with torch.no_grad():
+                noise = torch.randn((model.n_blocks,), generator=gen, device=device)
+                blocks, _ = model.build_blocks(params, phase, noise=noise)
+                check_lit_pass(checks, "lit blocks pass", model.renderer, blocks, R, T, gen,
+                               sigma=phase.sigma)
+                env, _ = model.build_env(params, phase)
+                check_lit_pass(checks, "lit env pass", model.renderer_env, env, R, T, gen)
+        del model, params, opt
+    for name, cs in checks.items():
+        for c in cs:
+            lib = "" if c["library_ms"] is None else f", index_add_ {c['library_ms']:.4f} ms"
+            say("lit", f"{name} [{c['path']}]: kernel {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f} ms{lib}; bound {c['bound_ms']:.4f} ms by "
+                f"{c['bound_by']} {c['bound_counts']}, {c['bound_ms'] / c['ms']:.3f} of it")
+    bad = [f"{n} [{c['path']}]" for n, cs in checks.items() for c in cs if not c.pop("ok")]
+    if bad:
+        raise SystemExit(f"lit: kernel check failed: {bad}")
+    say("lit", f"lit steps' launches ({len(LIT_CASES) * N_LIT_STEPS} steps): {launches}")
+
+    model = make_model(cfg, device)
+    for name in OTHER_OPTIMIZERS:
+        ocfg = copy.deepcopy(cfg)
+        ocfg["training"]["optimizer"]["name"] = name
+        params = model.init_params(seed=0)
+        opt = create_optimizer(ocfg, params)
+        say("lit", f"optimizer {name}: {type(opt).__name__}")
+        run_steps(f"lit optimizer {name}", model, params, opt, N_LIT_STEPS, STEP_KERNELS,
+                  device)
+    del model
+    for name in CRITERIA:
+        model = make_model(cfg, device, loss=dict(name=name))
+        params = model.init_params(seed=0)
+        say("lit", f"criterion {name}")
+        run_steps(f"lit criterion {name}", model, params, create_optimizer(cfg, params),
+                  N_CRITERION_STEPS, STEP_KERNELS, device)
+        del model, params
+    resume_step_check(cfg, device, RESUME_OPTIMIZER)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    return launches, len(LIT_CASES) * N_LIT_STEPS, checks, numbers
+
+
+def phase_nerfstudio(device):
+    """The Trainer on configs/nerfstudio/campanile.yml at full width on a
+    written capture, NS_OVERRIDES and dataset.root only, through the final
+    eval. The launch counts are set to 0 just before Trainer.run and read
+    just after. Returns (launches, the phase's numbers)."""
+    from dbw_torch import kernels
+    from dbw_torch.data.scan_writer import write_nerfstudio_capture
+    from dbw_torch.data.synthetic import make_synthetic_scene
+    from dbw_torch.train.trainer import Trainer
+    from dbw_torch.utils.config import load_yaml
+
+    t_phase = time.perf_counter()
+    cfg = load_yaml(NS_CONFIG)
+    seed = cfg["training"]["seed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ds, _, _ = make_synthetic_scene(NS_CAPTURE_SIZE, n_views=49, seed=3, device=device)
+        cap = write_nerfstudio_capture(Path(tmp) / "ns", cfg["dataset"]["tag"], ds.imgs,
+                                       ds.K[0], ds.R, ds.T, points=ds.pc_gt)
+        say("nerfstudio", f"capture {cap.name} written in {time.perf_counter() - t0:.1f} s: "
+            f"{len(ds)} PNGs of {NS_CAPTURE_SIZE}, transforms.json, point_cloud.ply of "
+            f"{len(ds.pc_gt)} points")
+        cfg["dataset"]["root"] = str(Path(tmp) / "ns")
+        cfg["training"].update(copy.deepcopy(NS_OVERRIDES))
+        run = Path(tmp) / "run"
+        tr = Trainer(copy.deepcopy(cfg), run, device=device, seed=seed)
+        say("nerfstudio", f"Trainer on {NS_CONFIG.relative_to(ROOT)}: dataset {tr.dataset.name} "
+            f"{tr.dataset.tag} {tr.dataset.imgs.shape} (downscale_factor "
+            f"{cfg['dataset']['downscale_factor']}), val views {len(tr.val_loader.dataset)}, "
+            f"test views {len(tr.test_loader.dataset)}, camera {tr.model.camera}, "
+            f"R_world {cfg['model']['mesh']['R_world']}; overrides {NS_OVERRIDES} and "
+            "dataset.root")
+        t_train = []
+        plots = tr.save_metric_plots
+        tr.save_metric_plots = lambda: (t_train.append(time.perf_counter()), plots())[1]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr.run(seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_steps = tr.n_epoches * tr.n_batches
+        log = tr.train_metrics.read_log()
+        vals = np.stack([v for k, v in log.items() if k.startswith("loss")])
+        scores_txt = (run / "final_scores.tsv").read_text().splitlines()
+        scores = dict(zip(scores_txt[0].split("	"), map(float, scores_txt[1].split("	"))))
+        missing = check_run_dir(run, int(scores["n_blocks"]), tr.model.n_blocks)
+        numbers = dict(steps_per_s=n_steps / (t_train[0] - t0), run_s=wall, steps=n_steps,
+                       n_blocks_kept=int(scores["n_blocks"]),
+                       loss_total=[float(log["loss_total"][0]), float(log["loss_total"][-1])])
+        say("nerfstudio", f"run in {wall:.1f} s: {n_steps} steps in {t_train[0] - t0:.1f} s "
+            f"({numbers['steps_per_s']:.3f} steps/s over the training loop); loss_total "
+            f"{numbers['loss_total']}; final_scores {scores}; missing artifacts {missing}; "
+            f"launches {launches}")
+        not_launched = [k for k in SOURCES if not launches[k]]
+        ok = (tr.dataset.img_size == IMG_SIZE and len(tr.val_loader.dataset) == 0
+              and np.isfinite(vals).all() and all(math.isfinite(v) for v in scores.values())
+              and not missing)
+        if not ok or not_launched:
+            raise SystemExit(f"nerfstudio phase failed (kernels not launched: {not_launched})")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1867,7 +2132,17 @@ def main():
     scenes_numbers = phase_scenes(device)
     scenes_numbers["phase_s"] = time.perf_counter() - t0
     say("scenes", f"phase in {scenes_numbers['phase_s']:.1f} s")
+    lit, n_lit_steps, lit_checks, lit_numbers = phase_lit(cfg, device)
+    say("lit", f"phase in {lit_numbers['phase_s']:.1f} s")
+    ns, ns_numbers = phase_nerfstudio(device)
+    say("nerfstudio", f"phase in {ns_numbers['phase_s']:.1f} s")
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
+
+    for n, cs in lit_checks.items():
+        results[n]["checks"] += cs
+        results[n]["max_abs_err"] = max(c["max_abs_err"] for c in results[n]["checks"])
+    per_step["lit blocks pass"] = per_step["lit env pass"] = {
+        n: lit[n] / n_lit_steps for n in SOURCES}
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
         n: 0.0 for n in SOURCES}
@@ -1885,9 +2160,11 @@ def main():
          "protocol_launches": protocol["run"][n],
          "protocol_launches_per_iteration": protocol["per_iteration"][n],
          "protocol_launches_per_val_interval": protocol["per_val_interval"][n],
+         "lit_launches": lit[n], "nerfstudio_trainer_launches": ns[n],
          **results[n]}
         for n in SOURCES], "trainer": numbers, "dtu": dtu_numbers, "mesh": mesh_numbers,
-        "vgg": vgg, "protocol": protocol_numbers, "scenes": scenes_numbers}
+        "vgg": vgg, "protocol": protocol_numbers, "scenes": scenes_numbers,
+        "lit": lit_numbers, "nerfstudio": ns_numbers}
     line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
         launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)

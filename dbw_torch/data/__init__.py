@@ -1,20 +1,18 @@
 """Dataset factory (PyTorch port of dbw_tpu/data/__init__.py): synthetic,
-DTU and BlendedMVS. Nerfstudio scenes raise (ROADMAP.md queue 1, item 8)."""
+DTU, BlendedMVS and nerfstudio captures. An unknown name raises KeyError."""
 
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .base import Loader, MultiViewDataset
 from .bmvs import load_bmvs
 from .dtu import load_dtu
+from .nerfstudio import load_nerfstudio
 from .synthetic import load_synthetic
 
-LOADERS = {"dtu": load_dtu, "bmvs": load_bmvs, "synthetic": load_synthetic}
+LOADERS = {"dtu": load_dtu, "bmvs": load_bmvs, "synthetic": load_synthetic,
+           "nerfstudio": load_nerfstudio}
 
 
 def get_dataset(name):
-    if name not in LOADERS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported (nerfstudio: ROADMAP.md queue 1, "
-            "item 8)")
     return LOADERS[name]
 
 

@@ -1,5 +1,7 @@
-"""Write a scene as a DTU scan in the IDR layout, the layout ``load_dtu``
-and the official protocol read (no real scan is in the repository):
+"""Write a scene as a capture in a dataset's layout (no real scan or
+capture is in the repository): a nerfstudio capture as ``load_nerfstudio``
+reads it (``write_nerfstudio_capture``), or a DTU scan in the IDR layout,
+the layout ``load_dtu`` and the official protocol read:
 
     <root>/<scanXX>/image/000000.png ...
     <root>/<scanXX>/cameras.npz          world_mat_i, scale_mat_i
@@ -71,3 +73,41 @@ def write_idr_scan(root, scan_id, imgs, K_ndc, R, T, scale_mat, points=None):
     savemat(root / "ObsMask" / f"Plane{scan_id}.mat",
             {"P": np.array([[0.0], [1.0], [0.0], [-(lo[1] - 1.0)]])})
     return scan
+
+
+_GL_FLIP = np.diag([-1.0, 1.0, -1.0])  # internal (pytorch3d) cam <-> OpenGL cam
+
+
+def write_nerfstudio_capture(root, tag, imgs, K_ndc, R, T, points=None):
+    """Write capture ``tag`` under ``root`` in nerfstudio's processed-data
+    layout: ``images/frame_XXXXX.png`` from ``imgs`` (N, H, W, 3) in [0,
+    1], ``transforms.json`` with the pixel intrinsics ``fl_x fl_y cx cy w
+    h`` of the NDC ``K_ndc`` (4, 4) and each view's OpenGL camera-to-world
+    ``transform_matrix`` of the internal (R, T), and, with ``points`` (P,
+    3), ``point_cloud.ply``. The inverse of ``load_nerfstudio``'s
+    conversions. Returns the capture directory."""
+    import json
+
+    base = Path(root) / tag
+    (base / "images").mkdir(parents=True, exist_ok=True)
+    imgs = np.asarray(imgs)
+    H, W = imgs.shape[1:3]
+    s = min(H, W) / 2.0
+    K = np.asarray(K_ndc, np.float64)
+    frames = []
+    for i, img in enumerate(imgs):
+        name = f"images/frame_{i:05d}.png"
+        Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)).save(base / name)
+        R_wc = _GL_FLIP @ np.asarray(R[i], np.float64).T  # world -> OpenGL cam
+        t_wc = _GL_FLIP @ np.asarray(T[i], np.float64)
+        c2w = np.eye(4)
+        c2w[:3, :3] = R_wc.T
+        c2w[:3, 3] = -R_wc.T @ t_wc
+        frames.append({"file_path": name, "transform_matrix": c2w.tolist()})
+    meta = {"fl_x": K[0, 0] * s, "fl_y": K[1, 1] * s,
+            "cx": W / 2.0 - K[0, 2] * s, "cy": H / 2.0 - K[1, 2] * s,
+            "w": int(W), "h": int(H), "frames": frames}
+    (base / "transforms.json").write_text(json.dumps(meta))
+    if points is not None:
+        save_ply(base / "point_cloud.ply", np.asarray(points, np.float32))
+    return base

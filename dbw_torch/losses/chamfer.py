@@ -80,6 +80,9 @@ def chamfer_distance(x, y, x_normals=None, y_normals=None, batch_reduction="mean
     direction_reduction None or "none" each is an (x, y) pair."""
     x = torch.as_tensor(x, dtype=torch.float32)
     y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    if x.ndim not in (2, 3) or y.ndim != x.ndim:
+        raise ValueError(f"chamfer_distance: point clouds (N, P, D) or (P, D), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
     if x.ndim == 2:
         x, y = x[None], y[None]
         if x_normals is not None:

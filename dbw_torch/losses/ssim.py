@@ -38,3 +38,14 @@ def ssim_loss(img1, img2, window_size=11, padding=True):
     ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
     return (1.0 - ssim_map).reshape(img1.shape[0], -1).mean(dim=1)
+
+
+class SSIM:
+    """Callable per-image SSIM dissimilarity (the reference's SSIMLoss)."""
+
+    def __init__(self, window_size=11, padding=True):
+        self.window_size = window_size
+        self.padding = padding
+
+    def __call__(self, img1, img2):
+        return ssim_loss(img1, img2, self.window_size, self.padding)

@@ -13,10 +13,13 @@ dbw_tpu/models/dbw.py).
 Ported: both rendering branches (``decouple_rendering: True``, the hard
 env pass of dome and ground composited under the soft blocks pass; and
 ``False``, env and blocks as one scene through the soft renderer), the
-losses and ``forward``, with the pixel-band hooks of the JAX package's
-sharded trainers (``row_range``, ``rec_gather``); and the viz and eval
-surface: the supersampled ``renderer_viz`` and flat-lit ``renderer_light``,
-the synthetic-color scene and render, opacities and face palettes.
+losses (every RGB criterion of the loss registry) and ``forward``, with the
+pixel-band hooks of the JAX package's sharded trainers (``row_range``,
+``rec_gather``); the config surface of the renderers: the perspective and
+fov cameras, ambient, directional and point lights, raw and lit
+(flat/gouraud/phong) shading; and the viz and eval surface: the
+supersampled ``renderer_viz`` and flat-lit ``renderer_light``, the
+synthetic-color scene and render, opacities and face palettes.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from ..losses.basic import get_loss, tv_norm_funcs
+from ..losses import get_loss
+from ..losses.basic import tv_norm_funcs
 from ..losses.vgg import LPIPSLoss, PerceptualLoss, VGG16Features
 from ..ops.icosphere import icosphere, plane_mesh, subdivide
 from ..ops.rotations import euler_world_matrix, random_rotations, rotation_6d_to_matrix
@@ -147,7 +151,7 @@ class BlocksWorld:
             "overlap": kw.pop("overlap_weight", 0),
         }
         self.loss_name = kw.pop("name", "mse")
-        self.criterion = get_loss(self.loss_name)
+        self.criterion = get_loss(self.loss_name, device=self.device)
         self.perceptual_name = kw.pop("perceptual_name", "lpips")
         self.tv_norm = tv_norm_funcs[kw.pop("tv_type", "l2sq")]
         vgg_weights_path = kw.pop("vgg_weights", None)
@@ -258,26 +262,60 @@ class BlocksWorld:
         return scene_params_from_numpy(self.init_params_numpy(seed), self.device)
 
     def set_camera(self, K_ndc):
-        """Install the dataset camera (NDC K of the first view) and build the
-        renderers: training, env, viz and light. Supports the 'perspective'
-        camera and ambient lights, the configuration of the shipped
-        configs."""
+        """Install the camera and build the renderers: training, env, viz
+        and light. Cameras: 'perspective' (the dataset's NDC K of the first
+        view, or the config's ``K``) and 'fov' (pytorch3d's FoV pinhole:
+        fov 60 degrees, aspect 1 by default; the dataset K is ignored). With
+        no ``cameras`` key the dataset camera is used; a ``cameras`` block
+        without a name means 'fov', the reference's default. Lights:
+        ambient (the default, ambient colour 1 1 1), directional and point
+        (pytorch3d's colours), given to the training, env and viz
+        renderers with ``shading_type``."""
         rc = dict(self._renderer_cfg)
         had_cam_cfg = rc.get("cameras") is not None
         cam_cfg = dict(rc.pop("cameras", None) or {})
         cam_name = cam_cfg.pop("name", "fov" if had_cam_cfg else "perspective")
-        if cam_name != "perspective":
-            raise NotImplementedError(f"camera {cam_name!r} is not ported")
-        K_cfg = cam_cfg.pop("K", None)
-        K = np.asarray(K_cfg if K_cfg is not None else K_ndc, np.float32)
+        if cam_name == "perspective":
+            K_cfg = cam_cfg.pop("K", None)
+            self.camera = Camera.from_K_ndc(
+                np.asarray(K_cfg if K_cfg is not None else K_ndc, np.float32))
+        elif cam_name == "fov":
+            fov = float(cam_cfg.pop("fov", 60.0))
+            aspect = float(cam_cfg.pop("aspect_ratio", 1.0))
+            for k in ("znear", "zfar", "degrees"):  # z range: z_clip / z_far
+                cam_cfg.pop(k, None)
+            t = math.tan(math.radians(fov) / 2.0)
+            # pytorch3d's FoV NDC projection: fx = 1 / (tan * aspect), fy = 1 / tan
+            self.camera = Camera.from_K_ndc([[1.0 / (t * aspect), 0.0, 0.0],
+                                             [0.0, 1.0 / t, 0.0]])
+        else:
+            raise NotImplementedError(f"unknown camera type: {cam_name!r} "
+                                      "(supported: 'fov', 'perspective')")
         _no_unknown(cam_cfg, "camera config")
-        self.camera = Camera.from_K_ndc(K)
 
         light_cfg = dict(rc.pop("lights", None) or {})
-        if light_cfg.pop("name", "ambient") != "ambient":
-            raise NotImplementedError("only ambient lights are ported")
-        amb = tuple(np.asarray(light_cfg.pop("ambient_color", (1.0, 1.0, 1.0)),
-                               np.float32).reshape(-1)[:3])
+        light_name = light_cfg.pop("name", "ambient")
+        flat1 = lambda v: tuple(np.asarray(v, np.float32).reshape(-1)[:3])
+        if light_name == "ambient":
+            amb = flat1(light_cfg.pop("ambient_color", (1.0, 1.0, 1.0)))
+            # the all-ones ambient is a no-op: None skips the raw path's multiply
+            light_kw = dict(light_type="ambient",
+                            ambient_color=None if amb == (1.0, 1.0, 1.0) else amb)
+        elif light_name in ("directional", "point"):
+            light_kw = dict(
+                light_type=light_name,
+                ambient_color=flat1(light_cfg.pop("ambient_color", (0.5, 0.5, 0.5))),
+                diffuse_color=flat1(light_cfg.pop("diffuse_color", (0.3, 0.3, 0.3))))
+            if light_name == "directional":
+                light_kw["light_direction"] = flat1(
+                    light_cfg.pop("direction", (0.0, 1.0, 0.0)))
+            else:
+                light_kw["light_location"] = flat1(
+                    light_cfg.pop("location", (0.0, 1.0, 0.0)))
+            light_cfg.pop("specular_color", None)  # specular is always zero
+        else:
+            raise NotImplementedError(f"unknown light type: {light_name!r} "
+                                      "(supported: 'ambient', 'directional', 'point')")
         _no_unknown(light_cfg, "light config")
         fpp = rc.pop("faces_per_pixel", 25)
         rc.pop("sigma", None)
@@ -286,8 +324,7 @@ class BlocksWorld:
         shared = dict(
             shading=rc.pop("shading_type", "raw"),
             background_color=tuple(rc.pop("background_color", (0.0, 0.0, 0.0))),
-            ambient_color=None if amb == (1.0, 1.0, 1.0) else amb,
-            light_type="ambient", z_clip=z_clip,
+            z_clip=z_clip, **light_kw,
         )
         self.renderer = make_train_renderer(
             self.img_size, self.camera, faces_per_pixel=fpp,

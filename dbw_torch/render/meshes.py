@@ -1,5 +1,6 @@
 """Static-topology scene mesh and texture atlas (PyTorch port of
-dbw_tpu/render/meshes.py: the training path and ``face_normals``).
+dbw_tpu/render/meshes.py: the quad texture samples, ``sample_atlas_bilinear``
+and ``face_normals``).
 
 A scene is a fixed set of flat tensors; dead blocks are collapsed in place,
 never removed, so shapes never change during optimization.
@@ -12,6 +13,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..ops.texel_grad import corner_weights, quad_maps_grad
+from .fragment import texel_coords
 
 
 class TextureAtlas(NamedTuple):
@@ -135,3 +137,18 @@ def sample_quad_diff(maps_flat, id00, wx, wy, TW, TH, K):
     ``sample_quad``."""
     return _SampleQuadDiff.apply(maps_flat, id00, wx, wy, TW, TH, K)
 
+
+
+def sample_atlas_bilinear(maps, map_idx, uv, diff_uv=False, K=1):
+    """Bilinear texture lookup with align_corners semantics: maps (M, TH,
+    TW, C), map_idx (N,), uv (N, 2) in [0, 1] with v = 0 at the bottom row
+    -> (N, C). With ``diff_uv`` the sample is differentiable in uv too
+    (``sample_quad_diff``), else in the maps only (``sample_quad``, uv held
+    fixed); either way the texel gradient is K4. ``K``: the slot count of
+    the fragment layout n = pixel * K + slot."""
+    M, TH, TW = maps.shape[:3]
+    maps_flat = maps.reshape(M * TH * TW, maps.shape[-1])
+    id00, wx, wy = texel_coords(uv[:, 0], uv[:, 1], map_idx, TH, TW)
+    if diff_uv:
+        return sample_quad_diff(maps_flat, id00, wx, wy, TW, TH, K)
+    return sample_quad(maps_flat, id00, wx.detach(), wy.detach(), TW, K)

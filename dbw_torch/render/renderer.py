@@ -24,9 +24,16 @@ times the image size through the env branch and average-pool back; their
 K1-hard launches count as ``K1_select_hard_ss``. ``render_faces_flat``
 (per-face constant colors under a flat light) and the wireframe overlays
 ``render_edges``/``draw_edges`` ride the same supersampled hard raster.
-Lit shading of textured renders is not ported: ``render`` takes raw
-shading only, and a ``shading="flat"`` renderer serves
-``render_faces_flat``.
+
+The lit shading types (``shading="flat"``, ``"gouraud"``, ``"phong"``, from
+a config's ``shading_type``) run ``shade_lit``: the flat-layout fragment
+attributes of ``interpolate_fragments_flat`` in tensor code, as the JAX
+package's ``_shade_lit_flat`` computes them, the texture read by
+``sample_atlas_bilinear`` (texel gradient K4; differentiable in uv unless
+``detach_bary``), the light per face, per vertex or per fragment, then the
+layered blend; only the valid fragments are shaded. The selection is the
+same K1 as the raw path's: soft at the config's K and sigma, hard at sigma
+0. Pixel bands take raw shading only.
 """
 
 from __future__ import annotations
@@ -42,16 +49,18 @@ from .blend import layered_blend
 from .cameras import Camera, ndc_pixel_centers
 from .fragment import (FragFlags, alpha_math, bary_uv, fused_fragment_shade,
                        residual, texel_coords)
-from .interpolate import edge_dists_flat
-from .meshes import MeshScene, face_normals, sample_quad, sample_quad_diff
+from .interpolate import (edge_dists_flat, fragment_alpha_flat, gather_rows,
+                          interp_corner_table, interpolate_fragments_flat)
+from .meshes import (MeshScene, face_normals, sample_atlas_bilinear, sample_quad,
+                     sample_quad_diff)
 from .rasterize import RasterConfig, project_faces, rasterize
-from .shading import _light
+from .shading import _light, vertex_normals
 
 # blur_radius = log(1/1e-4 - 1) * sigma (reference renderer.py:51)
 BLUR_RADIUS_FACTOR = math.log(1.0 / 1e-4 - 1.0)
 # camera-frame light of the flat-lit renders (reference renderer.py:21)
 DIRECTION_LIGHT = (1.0, 0.25, -1.0)
-SHADING_TYPES = ("raw", "flat")
+SHADING_TYPES = ("raw", "flat", "phong", "gouraud")
 LIGHT_TYPES = ("ambient", "directional", "point")
 
 
@@ -89,14 +98,12 @@ class Renderer:
     """Stateless given (config, camera)."""
 
     def __init__(self, config: RendererConfig, camera: Camera):
-        flat_ok = float(config.sigma) == 0.0 and config.faces_per_pixel == 1
-        if config.shading not in SHADING_TYPES or (config.shading == "flat"
-                                                   and not flat_ok):
-            raise NotImplementedError(
-                f"shading_type {config.shading!r}: only 'raw' is ported, and "
-                "'flat' for the hard K=1 renderer of render_faces_flat")
+        if config.shading not in SHADING_TYPES:
+            raise NotImplementedError(f"unknown shading_type: {config.shading!r} "
+                                      f"(supported: {SHADING_TYPES})")
         if config.light_type not in LIGHT_TYPES:
-            raise NotImplementedError(f"unknown light type: {config.light_type!r}")
+            raise NotImplementedError(f"unknown light type: {config.light_type!r} "
+                                      f"(supported: {LIGHT_TYPES})")
         self.config = config
         self.camera = camera
 
@@ -110,10 +117,9 @@ class Renderer:
         sigma of 0 (the env renderer) the selection takes its hard
         specialization, as the JAX package decides it."""
         cfg = self.config
-        if cfg.shading != "raw":
+        if row_range is not None and cfg.shading != "raw":
             raise NotImplementedError(
-                f"render: shading_type {cfg.shading!r} is not ported (a flat "
-                "renderer serves render_faces_flat only)")
+                "row_range (pixel-band sharding) supports raw shading only")
         if row_range is not None and cfg.supersample > 1:
             raise ValueError("row_range: training renderers only (no supersampling)")
         hard = sigma is None and float(cfg.sigma) == 0.0
@@ -122,8 +128,11 @@ class Renderer:
                              z_clip=cfg.z_clip)
         p2f = rasterize(geom, blur, cfg.raster_config(), hard=hard,
                         row_range=row_range)
-        img = self.shade(scene, geom, p2f, sigma,
-                         row0=0 if row_range is None else int(row_range[0]))
+        if cfg.shading == "raw":
+            img = self.shade(scene, geom, p2f, sigma,
+                             row0=0 if row_range is None else int(row_range[0]))
+        else:
+            img = self.shade_lit(scene, geom, p2f, R, sigma)
         return _avg_pool_2d(img, cfg.supersample)
 
     def shade(self, scene: MeshScene, geom, p2f, sigma, row0=0):
@@ -161,6 +170,52 @@ class Renderer:
                                               device=colors.device)
         return layered_blend(colors.reshape(B, Hb, W, K, 3),
                              alpha.reshape(B, Hb, W, K), cfg.background_color)
+
+    def shade_lit(self, scene: MeshScene, geom, p2f, R, sigma):
+        """flat / gouraud / phong shading of the selected faces p2f (B, H, W,
+        K) of the (supersampled) image, views R (B, 3, 3) -> RGBA (B, H, W,
+        4). With the default ambient light (1, 1, 1) every type leaves the
+        texels unchanged. Only the valid fragments are shaded: an empty slot
+        has alpha 0 and takes no gradient, as in the JAX package's dense
+        stream."""
+        cfg = self.config
+        B, H, W, K = p2f.shape
+        F = scene.faces.shape[0]
+        sel = torch.nonzero(p2f.reshape(-1) >= 0).squeeze(1)
+        ff = interpolate_fragments_flat(p2f, geom, cfg.raster_config(),
+                                        detach_bary=cfg.detach_bary, select=sel)
+        uv = interp_corner_table(ff, scene.uv_verts[scene.uv_faces].reshape(F, 6))
+        # the compacted stream has no (pixel, slot) layout: K4 takes K = 1
+        colors = sample_atlas_bilinear(scene.atlas.maps, scene.map_idx[ff.idx], uv,
+                                       diff_uv=not cfg.detach_bary, K=1)
+        ambient = cfg.ambient_color or (1.0, 1.0, 1.0)
+        light_of = lambda normals, points, Rv, view=None: _light(
+            normals, points, Rv, cfg.light_type, cfg.light_direction,
+            cfg.light_location, ambient, cfg.diffuse_color, view=view)
+        verts, faces = scene.verts, scene.faces
+        rows = ff.idx + ff.view * F
+        if cfg.shading == "flat":
+            fn = face_normals(verts, faces)
+            cent = verts[faces].mean(dim=1)
+            light = gather_rows(torch.cat([light_of(fn, cent, R[b]) for b in range(B)]),
+                                rows)
+        elif cfg.shading == "gouraud":
+            vn = vertex_normals(verts, faces)
+            light_v = torch.cat([light_of(vn, verts, R[b])[faces].reshape(F, 9)
+                                 for b in range(B)])
+            light = interp_corner_table(ff, light_v, rows)
+        else:  # phong: the light of the interpolated, renormalized normal
+            n = interp_corner_table(ff, vertex_normals(verts, faces)[faces].reshape(F, 9))
+            n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
+            pts = interp_corner_table(ff, verts[faces].reshape(F, 9))
+            light = light_of(n, pts, R, view=ff.view)
+        alpha = (fragment_alpha_flat(ff, sigma, clip_inside=cfg.clip_inside)
+                 * gather_rows(scene.faces_alpha, ff.idx))
+        N = B * H * W * K
+        dense = lambda v: torch.zeros((N,) + v.shape[1:], dtype=v.dtype,
+                                      device=v.device).index_copy(0, sel, v)
+        return layered_blend(dense(colors * light).reshape(B, H, W, K, 3),
+                             dense(alpha).reshape(B, H, W, K), cfg.background_color)
 
     def _hard_select(self, scene: MeshScene, R, T):
         """Projected faces and the front face per (supersampled) pixel:

@@ -74,10 +74,10 @@ def jax_key(seed):
 
 def slot_snapshot(snap, i):
     """Slot i of a ``checkpoint.snapshot`` of stacked leaves."""
-    copy, states = snap
+    copy, states, rule = snap
     return ({k: v[i] for k, v in copy.items()},
-            {k: {f: (v[i] if f != "step" else v) for f, v in st.items()}
-             for k, st in states.items()})
+            {k: {f: (v[i] if torch.is_tensor(v) and v.ndim else v)
+                 for f, v in st.items()} for k, st in states.items()}, rule)
 
 
 def check_one_card(n_data, n_spatial):

@@ -41,6 +41,23 @@ def save_obj(path, verts, faces, verts_uvs=None, faces_uvs=None, texture_map=Non
         path.with_suffix(".mtl").write_text(f"newmtl mesh\nmap_Kd {path.stem}.png\n")
 
 
+def load_obj(path):
+    """Minimal OBJ reader: verts (V, 3) float32 and triangle faces (F, 3)
+    int32 (vt/vn ignored, polygons fan-triangulated)."""
+    verts, faces = [], []
+    for line in Path(path).read_text().splitlines():
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "v":
+            verts.append([float(x) for x in parts[1:4]])
+        elif parts[0] == "f":
+            idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+            for k in range(1, len(idx) - 1):
+                faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
 def save_ply(path, points, colors=None):
     """Binary little-endian PLY point cloud, with uchar colors (from [0, 1])
     when given."""

@@ -3,6 +3,8 @@
 batch order, and ``sample_sq`` points (on the surface: JAX's random draw
 cannot be replayed)."""
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -121,8 +123,15 @@ def test_create_loaders_for_synthetic():
             create_train_val_test_loader(
                 {"dataset": {"name": name, "tag": "scan0", "root": "/nonexistent"}},
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="nerfstudio"):
-        create_train_val_test_loader({"dataset": {"name": "nerfstudio"}}, device="cpu")
+    # nerfstudio is ported (tests/test_torch_nerfstudio.py): without a capture
+    # it fails for want of the capture, as the JAX package's loader does
+    from dbw_tpu.data import create_train_val_test_loader as jax_loaders
+
+    ns = {"dataset": {"name": "nerfstudio", "tag": "cap", "root": "/nonexistent"}}
+    with pytest.raises(FileNotFoundError):
+        create_train_val_test_loader(copy.deepcopy(ns), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jax_loaders(copy.deepcopy(ns))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -35,6 +35,8 @@ MODULES = [
     "dbw_torch.data.bmvs", "dbw_torch.data.scan_writer", "dbw_torch.native",
     "dbw_torch.parallel", "dbw_torch.parallel.seeds", "dbw_torch.parallel.scenes",
     "dbw_torch.train.multi_seed", "dbw_torch.train.multi_scene",
+    "dbw_torch.losses", "dbw_torch.data.nerfstudio", "dbw_torch.ops.mesh_utils",
+    "dbw_torch.eval.baselines", "dbw_torch.models.tools",
 ]
 BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
        "('jax', 'jaxlib', 'optax', 'dbw_tpu'))")

@@ -71,10 +71,15 @@ def test_tv_norms_match_jax(norm):
 def test_mse_matches_jax():
     rng = np.random.default_rng(2)
     a, b = rng.random((2, 4, 5, 3), np.float32), rng.random((2, 4, 5, 3), np.float32)
-    got = float(tbasic.get_loss("mse")(torch.from_numpy(a), torch.from_numpy(b)))
+    from dbw_tpu.losses import get_loss as jax_get_loss
+    from dbw_torch.losses import get_loss
+
+    got = float(get_loss("mse")(torch.from_numpy(a), torch.from_numpy(b)))
     assert got == pytest.approx(float(jbasic.mse_loss(a, b)), rel=1e-6)
-    with pytest.raises(NotImplementedError):
-        tbasic.get_loss("ssim")
+    # an unknown criterion fails as in the JAX package
+    for lookup in (get_loss, jax_get_loss):
+        with pytest.raises(KeyError):
+            lookup("bogus")
 
 
 def test_random_vgg_filters_equal_jax():
@@ -156,8 +161,10 @@ def test_adam_with_texture_group_matches_optax():
     for k in shapes:
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(getattr(jp, k)),
                                    atol=5e-6, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        create_optimizer({"training": {"optimizer": {"name": "adamw"}}}, tp)
+    # an unknown optimizer fails as in the JAX package
+    for make, p in ((create_optimizer, tp), (jax_create_optimizer, jp)):
+        with pytest.raises(KeyError):
+            make({"training": {"optimizer": {"name": "bogus"}}}, p)
 
 
 @pytest.mark.parametrize("name", ["synthetic/dtu_shaped.yml", "dtu/scan24.yml"])

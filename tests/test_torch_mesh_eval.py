@@ -265,3 +265,30 @@ def test_model_from_checkpoint_and_mesh_scores(tmp_path):
     lines = (tmp_path / "mesh_scores.tsv").read_text().splitlines()
     assert lines[0] == "chamfer-L1\tchamfer-L1-ICP"
     assert lines[1] == "\t".join(f"{v:.6f}" for v in scores.values())
+
+
+def test_r5_mesh_scores_in_float32():
+    """r5's exported blocks (the two 42-vertex components of its
+    quali_eval/mesh.obj; the 81-vertex ground dropped) on the JAX package's
+    GT points of the scene (drawn as make_synthetic_scene draws them): the
+    port's MeshEvaluator and the JAX package's, both in float32 on the CPU
+    without ICP, agree within 1e-4 relative and land at 0.3446 +- 0.001,
+    not at r5's recorded 0.279313 (that score came from a TPU 1-NN whose
+    cross term ran in bfloat16). The blocks and the points are
+    scripts/torch_r5_scores.py's."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_r5_scores.py"
+    spec = importlib.util.spec_from_file_location("torch_r5_scores", path)
+    r5 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(r5)
+    v, f = r5.r5_blocks()
+    assert v.shape == (84, 3) and f.shape == (160, 3)
+    pts = r5.jax_gt_points()
+    assert pts.shape == (1998, 3)
+    got = tmetrics.MeshEvaluator(run_icp=False, device="cpu").evaluate(v, f, pts)
+    ref = jmetrics.MeshEvaluator(run_icp=False).evaluate(v, f, pts)
+    assert got["chamfer-L1"] == pytest.approx(ref["chamfer-L1"], rel=1e-4)
+    for score in (got["chamfer-L1"], ref["chamfer-L1"]):
+        assert score == pytest.approx(0.3446, abs=1e-3)

@@ -144,16 +144,24 @@ def test_env_renderer_config(models):
 
 
 def test_unported_paths_raise(models):
+    """The port refuses what the JAX package refuses, with the same error
+    type: an unknown shading type, an unknown config key, an unknown
+    camera; a lit training renderer builds in both."""
+    from dbw_tpu.render.renderer import make_train_renderer as jax_train_renderer
+
     jm, tm = models
-    with pytest.raises(NotImplementedError):
-        make_train_renderer((H, W), tm.camera, shading="flat")
+    for make, cam in ((make_train_renderer, tm.camera), (jax_train_renderer, jm.camera)):
+        with pytest.raises(NotImplementedError, match="shading_type"):
+            make((H, W), cam, shading="bogus")
+        assert make((H, W), cam, shading="flat").config.shading == "flat"
     with pytest.raises(ValueError):
         BlocksWorld((H, W), device="cpu", mesh=dict(n_blocks=2, bogus=1))
     cfg = copy.deepcopy(CFG)
     cfg["renderer"]["cameras"] = dict(name="orthographic")
-    m = BlocksWorld((H, W), device="cpu", **cfg)
-    with pytest.raises(NotImplementedError):
-        m.set_camera(K_NDC)
+    for m in (BlocksWorld((H, W), device="cpu", **copy.deepcopy(cfg)),
+              JaxBlocksWorld((H, W), backend="xla", **copy.deepcopy(cfg))):
+        with pytest.raises(NotImplementedError, match="camera"):
+            m.set_camera(K_NDC)
 
 
 # pixel bands: H = 24 in bands of 10 rows, the last overhanging the image by

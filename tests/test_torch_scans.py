@@ -199,8 +199,13 @@ def test_factory_loads_dtu_and_bmvs_and_refuses_nerfstudio(tmp_path):
         assert [ld.shuffle for ld in loaders] == [True, False, False]
         inp, lab = next(iter(loaders[0]))
         assert inp["imgs"].shape == (4, 24, 32, 3)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        create_train_val_test_loader({"dataset": {"name": "nerfstudio"}}, device="cpu")
+    # an unknown dataset name fails as in the JAX package
+    from dbw_tpu.data import get_dataset as jax_get_dataset
+    from dbw_torch.data import get_dataset
+
+    for lookup in (get_dataset, jax_get_dataset):
+        with pytest.raises(KeyError):
+            lookup("colmap")
 
 
 # -- the neighbour library and the protocol --------------------------------

@@ -207,10 +207,17 @@ def test_render_faces_flat_and_synthetic_match_jax(case):
 
 
 def test_flat_shading_only_for_faces_flat(case):
-    tm = case["tm"]
+    """The flat-lit viz renderer's textured render (lit shading through
+    ``shade_lit``) equals the JAX renderer's, away from the selection's
+    near-ties."""
     js, ts = _scenes(case)
-    with pytest.raises(NotImplementedError):
-        tm.renderer_light.render(ts, case["R"], case["T"])
+    ref = np.asarray(case["jm"].renderer_light.render(js, case["jR"], case["jT"]))
+    with torch.no_grad():
+        got = case["tm"].renderer_light.render(ts, case["R"], case["T"]).numpy()
+    keep = ~_pooled(case["ties"][True])
+    np.testing.assert_allclose(got[keep], ref[keep], atol=1e-5)
+    assert np.abs(got[..., :3] - case["tm"].renderer_viz.render(
+        ts, case["R"], case["T"]).numpy()[..., :3]).max() > 1e-3  # the light shows
 
 
 def test_ssim_matches_jax():
