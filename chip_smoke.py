@@ -95,7 +95,30 @@ Phases, one line each (or a few):
    configs/nerfstudio/campanile.yml at full width (only dataset.root,
    n_epoches, the stat intervals and the final eval's video knobs
    overridden; downscale_factor 2 gives 300x400) through the final eval:
-   every artifact, finite losses and scores, every kernel launched.
+   every artifact, finite losses and scores, every kernel launched;
+15. device mesh: the JAX package's device mesh over torch.distributed, on
+   this one card: 2 ranks (spawned processes) under gloo, NCCL refusing two
+   ranks on one device. The main path's step (5 Adam steps of one seed on
+   the flagship inputs) on (seed=1, data=2) and (seed=1, sp=2), each rank's
+   losses and parameters against two one-card runs of the same steps in
+   this call (4x their gap, floored at the parity budget), every kernel
+   launched in every step on every rank, each rank's K1 selections
+   covering its own rows only (the band (k Hb, Hb), Hb = ceil(H / 2), at sp
+   coordinate k on the sp layout, the whole image otherwise: read from
+   their pix_to_face), the gradient all_reduce and the band gather timed
+   alone; then
+   the 5-seed protocol on its default layout (seed=2: 6 slots, 1 padded),
+   26 iterations with a save, uninterrupted and killed after the save and
+   resumed, its seeds' final losses against phase 11's run A within phase
+   11's tolerance; steps/s and seed-steps/s beside one card's. A rank that
+   fails fails the phase. Rehearse it here with 2 gloo ranks on the CPU:
+   ``phase_device_mesh(cfg, torch.device("cpu"), numbers, setup=fn)``, fn
+   setting ``IMG_SIZE`` (30, 40), ``CONFIG`` (a small copy of the shipped
+   config) and the protocol's val interval (9), stubbing
+   ``torch.cuda.synchronize`` and counting the dispatchers (renderer's
+   ``rasterize``, ``frag_fwd``, ``frag_bwd``, ``quad_maps_grad``,
+   ``small_table_scatter_add``) as launches; ``numbers`` from a one-rank
+   ``protocol_run`` (about 2 min).
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -250,6 +273,22 @@ FLOPS_PER_ITEM = {"K2_frag_fwd": 140, "K3_frag_bwd": 260, "K4_texel_grad": 32,
 # kernels whose device time per launch phase 3 also reads from a profiler
 # trace, by the name of their device kernel
 DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel"}
+# the mesh phase: MESH_RANKS ranks on card 0 under gloo (NCCL refuses two
+# ranks on one device). Each layout takes MESH_STEPS Adam steps of seed
+# MESH_SEED on the main path's inputs; the 5-seed protocol takes its
+# default layout, factor_devices(2, 5) = (seed=2, data=1): 6 slots, 1 padded
+MESH_RANKS = 2
+MESH_STEPS = 5
+MESH_SEED = 11
+MESH_LAYOUTS = {"seed=1, data=2": dict(n_seed=1, n_data=2),
+                "seed=1, sp=2": dict(n_seed=1, n_data=1, n_spatial=2)}
+# a layout's losses are held to the protocol phase's rule (4x the spread of
+# two one-card runs, floored at the loss rtol 2e-5); its parameters to 4x
+# the two runs' largest parameter gap, floored at the ROADMAP's atol 3e-4
+MESH_PARAM_ATOL = 3e-4
+MESH_TIMEOUT_S = 900
+# the collectives timed alone: calls per timing
+N_COLLECTIVE_REPS = 20
 
 
 def say(phase, msg):
@@ -824,6 +863,28 @@ KERNEL_FAMILIES = {
 }
 
 
+def device_events(prof):
+    """A profiler's device records (kernels and copies)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy(events):
+    """(busy, span) of device records, in the profiler's microseconds: the
+    union of their intervals, and the span from the first one's start to
+    the last one's end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return busy, spans[-1][1] - spans[0][0]
+
+
 def profile_steps(model, params, opt, device):
     """torch.profiler over N_PROFILE_STEPS decoupled steps (after one
     warm-up): the device's busy time (the union of its kernel and copy
@@ -852,9 +913,7 @@ def profile_steps(model, params, opt, device):
                 step()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / N_PROFILE_STEPS
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+        dev = device_events(prof)
         if dev:
             if i:
                 say("profile", "device records read in profiler trace 2 of 2")
@@ -864,16 +923,7 @@ def profile_steps(model, params, opt, device):
         say("profile", "idle share and device time: not measured (neither of 2 "
             "profiler traces held device records)")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
+    busy, span = device_busy(dev)
     per_name = {}
     for e in dev:
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -1647,15 +1697,17 @@ def read_losses(path):
     return Metrics(log_file=path, append=True).read_log()
 
 
-def protocol_run(cfg, run, device, kill_after_save=False):
-    """One MultiSeedTrainer run of PROTOCOL_SEEDS; with ``kill_after_save``
-    it dies right after its first save and is resumed from
-    multi_model.pkl. Returns (trainer, final per-seed losses, seconds of
-    the loop, launches of its run)."""
+def protocol_run(cfg, run, device, kill_after_save=False, world_size=None):
+    """One MultiSeedTrainer run of PROTOCOL_SEEDS (on the ranks of the
+    process group, unless ``world_size`` says otherwise); with
+    ``kill_after_save`` it dies right after its first save and is resumed
+    from multi_model.pkl. Returns (trainer, final per-seed losses, seconds
+    of the loop, launches of its run)."""
     from dbw_torch import kernels
     from dbw_torch.train.multi_seed import MultiSeedTrainer
 
-    tr = MultiSeedTrainer(copy.deepcopy(cfg), run, PROTOCOL_SEEDS, device=device)
+    tr = MultiSeedTrainer(copy.deepcopy(cfg), run, PROTOCOL_SEEDS, device=device,
+                          world_size=world_size)
     if kill_after_save:
         save = tr.save
 
@@ -1670,7 +1722,12 @@ def protocol_run(cfg, run, device, kill_after_save=False):
             pass
         else:
             raise SystemExit("protocol phase failed: the run was not killed")
-        tr = MultiSeedTrainer(copy.deepcopy(cfg), run, resume=True, device=device)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's checkpoint on disk before any rank resumes
+        tr = MultiSeedTrainer(copy.deepcopy(cfg), run, resume=True, device=device,
+                              world_size=world_size)
         say("protocol", f"killed after the save, resumed at epoch {tr.epoch_start} "
             f"batch {tr.batch_start}, step counter {tr._step_ctr}")
     val_counts = {}
@@ -1805,6 +1862,305 @@ def phase_protocol(device, trainer_steps_per_s):
                    spread=spread.tolist(), resume_gap=gap.tolist(),
                    slot_vs_trainer_max=float(np.abs(la - lb).max()))
     return {"run": run_launches, "per_iteration": per_iter, "per_val_interval": per_val}, numbers
+
+
+def mesh_inputs(device):
+    """The mesh phase's B views: seeded images and the flagship cameras."""
+    imgs = torch.from_numpy(np.random.default_rng(7).random(
+        (N_VIEWS,) + IMG_SIZE + (3,), np.float32)).to(device)
+    return (imgs,) + cameras(N_VIEWS, device)
+
+
+def timed_ms(fn, reps=N_COLLECTIVE_REPS):
+    """ms of one fn() call: after a warm-up call and a barrier of every rank,
+    the host clock around ``reps`` calls, synchronized."""
+    import torch.distributed as dist
+
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def collective_ms(mesh, params, band_shape):
+    """The step's collectives on this rank, timed alone at the step's sizes:
+    the all_reduce of every gradient (one buffer, averaged over the seed
+    column) and, on an sp axis, the band gather with its transpose."""
+    from dbw_torch.parallel.seeds import band_gather
+
+    n = sum(p.numel() for p in params.values()) + 1
+    buf = torch.zeros(n, device=next(iter(params.values())).device)
+    out = {"allreduce_bytes": 4 * n, "allreduce_ranks": mesh.axis("reduce").size,
+           "allreduce_ms": timed_ms(lambda: mesh.mean([buf]))}
+    if mesh.shape.get("sp", 1) > 1:
+        band = torch.zeros(band_shape, device=buf.device, requires_grad=True)
+        axis = mesh.axis("sp")
+        out["band_gather_ms"] = timed_ms(
+            lambda: band_gather(band, axis, IMG_SIZE[0]).sum().backward())
+        out["band_bytes"] = 4 * band.numel()
+    return out
+
+
+def device_idle_share(fn, n=N_PROFILE_STEPS):
+    """The device's idle share over n calls of fn() under torch.profiler:
+    1 - the union of its kernel and copy intervals over the span from the
+    first one's start to the last one's end (None: no device record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = device_events(prof)
+    if not dev:
+        return None
+    busy, span = device_busy(dev)
+    return 1.0 - busy / span
+
+
+@contextlib.contextmanager
+def raster_rows():
+    """The (row0, rows) of every face selection (K1) the renderer makes
+    inside the block: row0 from its ``row_range``, rows from its
+    pix_to_face."""
+    from dbw_torch.render import renderer
+
+    seen, inner = set(), renderer.rasterize
+
+    def record(*args, row_range=None, **kw):
+        p2f = inner(*args, row_range=row_range, **kw)
+        seen.add((0 if row_range is None else int(row_range[0]), int(p2f.shape[1])))
+        return p2f
+
+    renderer.rasterize = record
+    try:
+        yield seen
+    finally:
+        renderer.rasterize = inner
+
+
+def mesh_steps(cfg, device, layout=None, idle=False, n_steps=MESH_STEPS):
+    """``n_steps`` Adam steps of MESH_SEED on the main path's inputs through
+    MultiSeedRunner on the ``layout`` mesh of the process group (None: a
+    mesh of one rank, the one-card step). -> dict of the (n_steps,) losses,
+    the parameters (on the CPU), the launches of each step, the (row0,
+    rows) of this rank's face selections (``rows``), the steps/s of steps
+    2 on, the collectives' ms and, with
+    ``idle``, the device's idle share over 3 more steps."""
+    from dbw_torch import kernels
+    from dbw_torch.parallel.mesh import make_mesh
+    from dbw_torch.parallel.seeds import MultiSeedRunner, stacked_leaves
+    from dbw_torch.train.optimizer import create_optimizer
+    from dbw_torch.train.trainer import step_seed
+
+    model = make_model(cfg, device)
+    mesh = make_mesh(**layout) if layout else make_mesh(1, 1, world_size=1)
+    params = stacked_leaves([model.init_params(seed=MESH_SEED)])
+    opt = create_optimizer(cfg, params)
+    runner = MultiSeedRunner(model, opt, mesh)
+    v = mesh.data_slice(N_VIEWS)
+    imgs, R, T = (x[v] for x in mesh_inputs(device))
+    phase = model.phase_for_epoch(0, training=True)
+
+    def step(k):
+        gens = [torch.Generator(device=device).manual_seed(step_seed(MESH_SEED, k))]
+        return runner.step(params, phase, imgs, R, T, gens)
+
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with raster_rows() as rows:
+        for k in range(n_steps):
+            if k == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = dict(kernels.LAUNCHES)
+            losses.append(step(k))
+            per_step.append({n: kernels.LAUNCHES[n] - before[n] for n in STEP_KERNELS})
+        torch.cuda.synchronize()
+    H, W = IMG_SIZE
+    Hb = -(-H // mesh.shape.get("sp", 1))
+    out = dict(losses=torch.cat(losses).cpu(), per_step=per_step,
+               launches=dict(kernels.LAUNCHES),
+               steps_per_s=(n_steps - 1) / (time.perf_counter() - t0),
+               params={k: p.detach().cpu() for k, p in params.items()}, rows=sorted(rows))
+    if mesh.world_size > 1:
+        out.update(collective_ms(mesh, params, (len(imgs), Hb, W, 3)))
+    if idle:
+        out["idle_share"] = device_idle_share(lambda: step(n_steps))
+    return out
+
+
+def mesh_spread(refs):
+    """Tolerances from two one-card runs of mesh_steps: the losses' (4x
+    their gap, floored at 2e-5 relative) and the parameters' (4x their
+    largest gap, floored at MESH_PARAM_ATOL)."""
+    a, b = refs
+    gap_l = float((a["losses"] - b["losses"]).abs().max())
+    gap_p = max(float((a["params"][k] - b["params"][k]).abs().max()) for k in a["params"])
+    tol_l = np.maximum(PROTOCOL_SPREAD_FACTOR * gap_l,
+                       PROTOCOL_RTOL_FLOOR * a["losses"].abs().numpy())
+    return gap_l, gap_p, tol_l, max(PROTOCOL_SPREAD_FACTOR * gap_p, MESH_PARAM_ATOL)
+
+
+def mesh_gaps(out, ref):
+    """A layout's largest loss gap (each step) and parameter gap to the
+    one-card run."""
+    gap_l = (out["losses"] - ref["losses"]).abs().numpy()
+    gap_p = max(float((out["params"][k] - ref["params"][k]).abs().max())
+                for k in ref["params"])
+    return gap_l, gap_p
+
+
+def own_rows(out, layout, rank):
+    """Whether every face selection of rank ``rank``'s mesh_steps on the
+    ``layout`` covered its own rows and only those: on an sp axis of n_sp
+    ranks the band (k Hb, Hb), Hb = ceil(H / n_sp), at k = rank % n_sp
+    (sp is the innermost axis); the whole image without one."""
+    H, n_sp = IMG_SIZE[0], layout.get("n_spatial", 1)
+    Hb = -(-H // n_sp)
+    return out["rows"] == [(rank % n_sp * Hb, Hb)]
+
+
+def mesh_rank(rank, tmp, device, setup=None):
+    """Rank ``rank`` of the mesh phase (a spawned process): joins the group
+    of MESH_RANKS ranks on card 0, runs each MESH_LAYOUTS layout's steps
+    and the protocol on its default layout, uninterrupted (run M) and
+    killed after its save and resumed (run K); saves its results in
+    ``tmp``. ``setup``: called first (the CPU rehearsal's swaps)."""
+    import torch.distributed as dist
+
+    from dbw_torch.parallel.mesh import close_distributed, init_distributed
+    from dbw_torch.utils.config import load_yaml
+
+    if setup is not None:
+        setup()
+    device = init_distributed(device, cards=1, init_method=f"file://{tmp}/store", rank=rank,
+                              world_size=MESH_RANKS)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out = {"backend": dist.get_backend(), "device": str(device)}
+        cfg = load_yaml(CONFIG)
+        for name, layout in MESH_LAYOUTS.items():
+            out[name] = mesh_steps(cfg, device, layout)
+        pcfg = load_yaml(CONFIG)
+        pcfg["training"].update(copy.deepcopy(PROTOCOL_OVERRIDES))
+        m, loss_m, wall_m, launches_m = protocol_run(pcfg, Path(tmp) / "m", device)
+        _, loss_k, _, _ = protocol_run(pcfg, Path(tmp) / "k", device, kill_after_save=True)
+        out["protocol"] = dict(losses_m=loss_m, losses_k=loss_k, wall_s=wall_m,
+                               launches=launches_m, slots=len(m.seeds), n_valid=m.n_valid,
+                               mesh=dict(m.mesh.shape), iterations=m.n_epoches * m.n_batches)
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        close_distributed()
+
+
+def run_ranks(target, args, n, timeout):
+    """target(rank, *args) in ``n`` spawned processes; every one of them is
+    stopped on return. -> their exit codes (None: killed at the timeout)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r,) + tuple(args)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [p.exitcode for p in procs]
+
+
+def phase_device_mesh(cfg, device, protocol_numbers, setup=None):
+    """The device mesh on one card: MESH_RANKS ranks under gloo. Each
+    MESH_LAYOUTS layout's losses and parameters against two one-card runs
+    of the same steps (their spread sets the tolerance), every kernel
+    launched in every step on every rank, each rank's K1 selections on its
+    own rows only (``own_rows``); the 5-seed protocol's valid slots (runs M and K) against phase
+    11's run A within phase 11's tolerance. Returns (launches per layout
+    and rank, numbers)."""
+    refs = [mesh_steps(cfg, device) for _ in range(2)]
+    gap_l, gap_p, tol_l, tol_p = mesh_spread(refs)
+    say("device mesh", f"one card, {MESH_STEPS} steps of seed {MESH_SEED} twice: "
+        f"{refs[0]['steps_per_s']:.3f} steps/s; the two runs' largest loss gap "
+        f"{gap_l:.3e}, parameter gap {gap_p:.3e}; tolerances: losses {tol_l.max():.3e}, "
+        f"parameters {tol_p:.3e}")
+    torch.cuda.empty_cache()
+    loss_a = np.asarray(protocol_numbers["final_losses"])
+    tol_a = np.maximum(PROTOCOL_SPREAD_FACTOR * max(protocol_numbers["spread"]),
+                       PROTOCOL_RTOL_FLOOR * np.abs(loss_a))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        codes = run_ranks(mesh_rank, (tmp, device.type, setup), MESH_RANKS, MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        say("device mesh", f"{MESH_RANKS} ranks exited with {codes} after {wall:.1f} s")
+        if codes != [0] * MESH_RANKS:
+            raise SystemExit(f"device mesh phase failed: rank exit codes {codes}")
+        outs = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(MESH_RANKS)]
+    ok = all(o["backend"] == "gloo" for o in outs) and all(own_rows(x, {}, 0) for x in refs)
+    launches, numbers = {}, {"ranks": MESH_RANKS, "backend": outs[0]["backend"],
+                             "one_card_steps_per_s": refs[0]["steps_per_s"],
+                             "loss_tolerance": float(tol_l.max()), "param_tolerance": tol_p}
+    for name in MESH_LAYOUTS:
+        launches[name] = [o[name]["launches"] for o in outs]
+        rows = []
+        for r, o in enumerate(outs):
+            lg, pg = mesh_gaps(o[name], refs[0])
+            every = all(all(v > 0 for v in st.values()) for st in o[name]["per_step"])
+            own_band = own_rows(o[name], MESH_LAYOUTS[name], r)
+            ok &= bool((lg <= tol_l).all()) and pg <= tol_p and every and own_band
+            rows.append(dict(steps_per_s=o[name]["steps_per_s"],
+                             allreduce_ms=o[name]["allreduce_ms"],
+                             allreduce_bytes=o[name]["allreduce_bytes"],
+                             band_gather_ms=o[name].get("band_gather_ms"),
+                             loss_gap=float(lg.max()), param_gap=pg,
+                             every_kernel_every_step=every, k1_rows=o[name]["rows"],
+                             own_band=own_band))
+            say("device mesh", f"{name}, rank {r} ({o['device']}, {o['backend']}): "
+                f"{o[name]['steps_per_s']:.3f} steps/s; losses {o[name]['losses'].tolist()}, "
+                f"largest gap to one card {lg.max():.3e}, parameters {pg:.3e}; every "
+                f"kernel in every step {every}; K1's (row0, rows) {o[name]['rows']}, its own "
+                f"band {own_band}; launches {o[name]['launches']}; "
+                f"all_reduce {o[name]['allreduce_ms']:.3f} ms for "
+                f"{o[name]['allreduce_bytes']} B; band gather "
+                f"{o[name].get('band_gather_ms')} ms")
+        numbers[name] = rows
+    prot = [o["protocol"] for o in outs]
+    pm = prot[0]
+    gaps_m = [float(np.abs(np.asarray(q["losses_m"]) - loss_a).max()) for q in prot]
+    gaps_k = [float(np.abs(np.asarray(q["losses_k"]) - loss_a).max()) for q in prot]
+    ok &= all((np.abs(np.asarray(q["losses_m"]) - loss_a) <= tol_a).all()
+              and (np.abs(np.asarray(q["losses_k"]) - loss_a) <= tol_a).all() for q in prot)
+    ok &= pm["mesh"] == {"seed": 2, "data": 1} and pm["slots"] == 6
+    seed_steps = pm["n_valid"] * pm["iterations"] / pm["wall_s"]
+    launches["protocol"] = [q["launches"] for q in prot]
+    say("device mesh", f"protocol on {pm['mesh']}: {pm['n_valid']} seeds in {pm['slots']} slots, "
+        f"{pm['iterations']} iterations in {pm['wall_s']:.2f} s on rank 0: {seed_steps:.3f} "
+        f"seed-steps/s against phase 11's {protocol_numbers['seed_steps_per_s']:.3f}; "
+        f"final losses M {pm['losses_m'].tolist()}, resumed K {pm['losses_k'].tolist()}; "
+        f"largest gap to phase 11's run A, M {max(gaps_m):.3e}, K {max(gaps_k):.3e} "
+        f"(tolerance {tol_a.max():.3e})")
+    numbers["protocol"] = dict(seed_steps_per_s=seed_steps, loop_s=pm["wall_s"],
+                               slots=pm["slots"], seeds=pm["n_valid"],
+                               final_losses=pm["losses_m"].tolist(),
+                               resumed_losses=pm["losses_k"].tolist(),
+                               gap_m=max(gaps_m), gap_k=max(gaps_k))
+    if not ok:
+        raise SystemExit("device mesh phase failed")
+    return launches, numbers
 
 
 def phase_scenes(device):
@@ -2136,6 +2492,10 @@ def main():
     say("lit", f"phase in {lit_numbers['phase_s']:.1f} s")
     ns, ns_numbers = phase_nerfstudio(device)
     say("nerfstudio", f"phase in {ns_numbers['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    dm_launches, dm_numbers = phase_device_mesh(cfg, device, protocol_numbers)
+    dm_numbers["phase_s"] = time.perf_counter() - t0
+    say("device mesh", f"phase in {dm_numbers['phase_s']:.1f} s")
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     for n, cs in lit_checks.items():
@@ -2161,10 +2521,12 @@ def main():
          "protocol_launches_per_iteration": protocol["per_iteration"][n],
          "protocol_launches_per_val_interval": protocol["per_val_interval"][n],
          "lit_launches": lit[n], "nerfstudio_trainer_launches": ns[n],
+         "mesh_launches": {path: [c[n] for c in per_rank]
+                           for path, per_rank in dm_launches.items()},
          **results[n]}
         for n in SOURCES], "trainer": numbers, "dtu": dtu_numbers, "mesh": mesh_numbers,
         "vgg": vgg, "protocol": protocol_numbers, "scenes": scenes_numbers,
-        "lit": lit_numbers, "nerfstudio": ns_numbers}
+        "lit": lit_numbers, "nerfstudio": ns_numbers, "device_mesh": dm_numbers}
     line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
         launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)

@@ -1,16 +1,23 @@
-"""The seed axis on one card (PyTorch port of dbw_tpu/parallel/seeds.py in
-its ``map`` mode): S optimizations of one model config keep every parameter
-as one stacked leaf (S, ...), and each step runs the slots one after the
-other, slot s seeing ``{k: v[s]}``. One torch Adam over the stacked leaves
-is S Adams: its update is elementwise and the slots share its step count.
+"""The seed axis (PyTorch port of dbw_tpu/parallel/seeds.py in its ``map``
+mode): S optimizations of one model config keep every parameter as one
+stacked leaf (S, ...), and each step runs the slots one after the other,
+slot s seeing ``{k: v[s]}``. One torch Adam over the stacked leaves is S
+Adams: its update is elementwise and the slots share its step count.
 
-Left out: ``MultiSeedRunner`` (shard_map over a device mesh; ROADMAP.md
-queue 1, item 7), and the ``DBW_SEED_EXEC`` knob with its vmap guard."""
+Across ranks, ``MultiSeedRunner`` is JAX's (seed, data[, sp]) sharded step
+on a ``mesh.Mesh``: each rank holds its seed column's slots, renders its
+view shard (and, on the ``sp`` axis, its row band, the band images
+gathered by ``band_gather``), averages the gradients and losses over its
+column, and steps its own Adam.
+
+Left out: the scanned multi-step and the device-resident dataset (TPU
+machinery), and the ``DBW_SEED_EXEC`` knob with its vmap guard."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def slot(x, s):
@@ -72,13 +79,16 @@ def select_best_seed(stacked_params, losses, n_valid=None):
     return unstack_params(stacked_params, best), best
 
 
-def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None):
+def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None,
+                  band=None):
     """One slot's forward and backward: its gradients accumulate into the
     stacked leaves' ``grad`` at its slot. ``draws``: the forward's random
     draws (``opacity_noise``, ``overlap_u``) when given, else they come
-    from ``generator``. Returns the slot's detached total loss."""
+    from ``generator``. ``band``: the forward's ``row_range`` and
+    ``rec_gather`` on the pixel-band axis. Returns the slot's detached
+    total loss."""
     losses = model.forward(params, phase, imgs, R, T, generator=generator,
-                           **(draws or {}))
+                           **(draws or {}), **(band or {}))
     losses["total"].backward()
     return losses["total"].detach()
 
@@ -94,13 +104,14 @@ def adam_step(optimizer, params):
     optimizer.step()
 
 
-def seed_backward(model, params, phase, imgs, R, T, generators=None, draws=None):
+def seed_backward(model, params, phase, imgs, R, T, generators=None, draws=None,
+                  band=None):
     """Every seed slot's forward and backward on the same views, one after
     the other; the gradients accumulate into the stacked leaves. Returns the
     (S,) total losses, on the device."""
     S = n_slots(params)
     return seed_axis_exec(
-        lambda p, g, d: slot_backward(model, p, phase, imgs, R, T, g, d),
+        lambda p, g, d: slot_backward(model, p, phase, imgs, R, T, g, d, band),
         params, generators or [None] * S, draws or [None] * S)
 
 
@@ -113,3 +124,84 @@ def seed_step(model, params, optimizer, phase, imgs, R, T, generators=None,
     losses = seed_backward(model, params, phase, imgs, R, T, generators, draws)
     adam_step(optimizer, params)
     return losses
+
+
+def mean_and_step(mesh, optimizer, params, losses):
+    """The gradients in ``params`` and the ``losses`` averaged over the
+    mesh's seed column (one all_reduce), then the optimizer step. ->
+    ``losses``, averaged."""
+    for p in params.values():
+        if p.grad is None:  # the zero gradient adam_step would give it
+            p.grad = torch.zeros_like(p)
+    mesh.mean([p.grad for p in params.values()] + [losses])
+    adam_step(optimizer, params)
+    return losses
+
+
+class _BandGather(torch.autograd.Function):
+    """The band images of every rank of the ``sp`` axis, tiled on the row
+    axis and cropped to H (JAX's tiled ``all_gather`` on axis 1). The
+    backward is its transpose: the full-image cotangents summed over the
+    axis (an all_reduce), of which each rank keeps its own rows."""
+
+    @staticmethod
+    def forward(ctx, band, axis, H):
+        ctx.axis, ctx.H, ctx.Hb = axis, H, band.shape[1]
+        parts = [torch.empty_like(band) for _ in range(axis.size)]
+        dist.all_gather(parts, band.contiguous(), group=axis.group)
+        return torch.cat(parts, dim=1)[:, :H]
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, Hb = ctx.axis, ctx.Hb
+        full = g.new_zeros((g.shape[0], axis.size * Hb) + tuple(g.shape[2:]))
+        full[:, :ctx.H] = g
+        dist.all_reduce(full, group=axis.group)
+        k = axis.index
+        return full[:, k * Hb:(k + 1) * Hb].contiguous(), None, None
+
+
+def band_gather(band, axis, H):
+    """(B, Hb, W, C) band of this rank -> the (B, H, W, C) image of the
+    bands of ``axis`` (a ``mesh.Axis``), differentiable."""
+    return _BandGather.apply(band, axis, H)
+
+
+class MultiSeedRunner:
+    """One rank's step of the (seed, data[, sp]) sharded protocol (JAX
+    ``MultiSeedRunner.step``).
+
+    ``params`` are this rank's slots (``mesh.slot_slice``) as stacked leaves
+    under ``optimizer``; the views are this rank's shard
+    (``mesh.data_slice``). On the ``sp`` axis the rank renders the rows
+    ``(k * Hb, Hb)``, Hb = ceil(H / n_sp), and the losses see the gathered
+    image. Gradients and losses are averaged over the seed column, then
+    Adam steps locally."""
+
+    def __init__(self, model, optimizer, mesh):
+        self.model = model
+        self.optimizer = optimizer
+        self.mesh = mesh
+        n_sp = mesh.shape.get("sp", 1)
+        self.band = None
+        if n_sp > 1:
+            H = model.img_size[0]
+            Hb = -(-H // n_sp)  # the last band may overhang H
+            axis = mesh.axis("sp")
+            self.band = {"row_range": (axis.index * Hb, Hb),
+                         "rec_gather": lambda rec: band_gather(rec, axis, H)}
+
+    def step(self, params, phase, imgs, R, T, generators=None, draws=None):
+        """One Adam step of this rank's slots on its views. Returns the
+        slots' (S_local,) total losses, averaged over the seed column."""
+        self.optimizer.zero_grad(set_to_none=True)
+        losses = seed_backward(self.model, params, phase, imgs, R, T, generators, draws,
+                               self.band)
+        return mean_and_step(self.mesh, self.optimizer, params, losses)
+
+    def select_best(self, params, losses, n_valid=None):
+        """Selection by the lowest train loss over every seed column's slots:
+        the slots and losses gathered first. -> (params of the best slot,
+        its index among all slots)."""
+        full = {k: self.mesh.gather(v.detach()) for k, v in params.items()}
+        return select_best_seed(full, self.mesh.gather(losses).cpu().numpy(), n_valid)

@@ -278,11 +278,27 @@ def stacked_to_jax(snap, lead_shape):
         opt_state, lambda c: np.full(tuple(lead_shape), int(c), np.int32))
 
 
-def restore_stacked(params_state, opt_state, params: dict, optimizer):
+def _index_slots(tree, slots):
+    """``tree`` (tuples, NamedTuples, dicts of arrays) with every array
+    indexed by ``slots`` on its leading (stacked) axes."""
+    if isinstance(tree, dict):
+        return {k: _index_slots(v, slots) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [_index_slots(v, slots) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if np.ndim(tree):
+        return np.asarray(tree)[slots]
+    return tree
+
+
+def restore_stacked(params_state, opt_state, params: dict, optimizer, slots=slice(None)):
     """Copy a protocol checkpoint's stacked params (a SceneParams or dict
     of arrays) and its optimizer state (``count`` of the stacked shape,
-    equal in every slot) into ``params`` and ``optimizer``."""
+    equal in every slot) into ``params`` and ``optimizer``: the stacked
+    slots ``slots`` of the file (an index into its leading axes; a rank of
+    a mesh takes its own), all of them by default."""
     ms = params_state._asdict() if isinstance(params_state, SceneParams) else params_state
+    ms, opt_state = _index_slots(dict(ms), slots), _index_slots(opt_state, slots)
 
     def one_count(c):
         counts = np.unique(np.asarray(c))

@@ -1,9 +1,10 @@
-"""Multi-scene trainer on one card (PyTorch port of
-dbw_tpu/train/multi_scene.py, its single-device branch): N scenes of one
-model config, S seeds each, trained together.
+"""Multi-scene trainer (PyTorch port of dbw_tpu/train/multi_scene.py): N
+scenes of one model config, S seeds each, trained together, on one card
+or on a mesh of ranks.
 
     python3 scripts/torch_multi_scene_pipeline.py -t TAG \\
         -c dtu/scan24.yml dtu/scan37.yml [--n-seeds S] [--cpu]
+    torchrun --nproc-per-node 4 scripts/torch_multi_scene_pipeline.py ... [--n-data 2]
 
 Every scene shares the model config and the training config but for
 ``training.seed``, and the scenes' train loaders have one batch count and
@@ -25,30 +26,62 @@ Each scene's run directory gets ``train_metrics.tsv``, ``val_metrics.tsv``
 layout, the step counter ``step_ctr`` in place of JAX's ``key``, as in
 ``multi_seed.py``) is written in the first run directory at every val
 interval and resumes exactly.
+
+Under torchrun, when the scenes divide the ranks, the trainer takes the
+JAX package's (scene, seed, data) mesh (``parallel/scenes.py``): the ranks
+of a scene factor into the smallest seed axis that fits the seeds and a
+data axis that divides the batch (or the given ``n_data``), the seeds are
+padded to the seed axis, and each rank trains its scene's slots through
+``MultiSceneRunner``. Losses, opacities and the checkpoint state are
+gathered across the scenes and seed columns; rank 0 alone writes the run
+directories and runs the final evaluation. When the scenes do not divide
+the ranks, the JAX package's single-device branch, with its warning: rank
+0 trains every scene on its card and the other ranks do nothing.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
-from ..parallel.scenes import camera_state, use_camera
-from ..parallel.seeds import adam_step, seed_backward, slot, stack_params, stacked_leaves
+from ..parallel.mesh import world
+from ..parallel.scenes import MultiSceneRunner, camera_state, make_scene_mesh, use_camera
+from ..parallel.seeds import (adam_step, n_slots, pad_seeds, seed_backward, slot, stack_params,
+                              stacked_leaves)
 from ..utils.device import DEFAULT_DEVICE, resolve_device
-from ..utils.logger import print_log
+from ..utils.logger import print_log, print_warning
 from ..utils.misc import path_mkdir
 from . import checkpoint as ck
-from .multi_seed import (check_one_card, evaluate_slots, jax_key, shared_lpips,
+from .multi_seed import (evaluate_slots, gathered_snapshot, jax_key, shared_lpips,
                          slot_snapshot)
 from .optimizer import create_optimizer
 from .scheduler import base_lrs, create_scheduler, set_lrs
 from .trainer import _HostWorker, _pad_ids, create_model, gather_views, step_seed
 
 MULTI_SCENE_CKPT = "multi_scene_model.pkl"
+
+
+def scene_layout(per_scene, n_seeds, batch_size, n_data=None):
+    """The JAX trainer's (data axis, seed axis) of the ranks of one scene:
+    the given ``n_data``, or the smallest seed axis that fits the seeds
+    whose leftover data axis divides the batch (else all-seed)."""
+    nd = n_data
+    if nd is None:
+        nd = 1
+        for cand_seed in sorted(d for d in range(1, per_scene + 1) if per_scene % d == 0):
+            if cand_seed >= n_seeds:
+                cand_data = per_scene // cand_seed
+                if batch_size % cand_data == 0:
+                    nd = cand_data
+                    break
+    if per_scene % nd:
+        raise ValueError(f"n_data={nd} does not divide {per_scene} devices/scene")
+    return nd, per_scene // nd
 
 
 def _require_equal(items, pick, what):
@@ -67,15 +100,13 @@ class MultiSceneTrainer:
     scene."""
 
     def __init__(self, cfgs, run_dirs, n_seeds=1, n_data=None, resume=False,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, world_size=None):
         assert len(cfgs) == len(run_dirs) and len(cfgs) >= 1
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        check_one_card(n_data, None)
         self.cfgs = cfgs
-        self.run_dirs = [path_mkdir(d) for d in run_dirs]
         self.n_scene = len(cfgs)
         _require_equal(cfgs, lambda c: c["model"], "model config")
         _require_equal(cfgs, lambda c: {k: v for k, v in c["training"].items()
@@ -87,6 +118,41 @@ class MultiSceneTrainer:
         self.steps_per_call = int(tcfg.get("steps_per_call", 1))
         self.train_stat_interval = tcfg.get("train_stat_interval", 0)
         self.val_stat_interval = tcfg.get("val_stat_interval", 0)
+        self.scene_seeds = [[c["training"].get("seed", 4321) + k for k in range(n_seeds)]
+                            for c in cfgs]
+        self.S = self.n_valid = n_seeds
+        rank, n_dev = world()
+        if world_size is not None:
+            n_dev = int(world_size)
+            rank = rank if n_dev > 1 else 0
+        self.mesh = None
+        self.rank0 = rank == 0
+        if n_dev > 1 and n_dev % self.n_scene == 0:
+            nd, seed_ax = scene_layout(n_dev // self.n_scene, n_seeds, self.batch_size, n_data)
+            self.S = -(-n_seeds // seed_ax) * seed_ax
+            self.scene_seeds = [pad_seeds(s, self.S)[0] for s in self.scene_seeds]
+            self.mesh = make_scene_mesh(self.n_scene, seed_ax, nd, world_size=n_dev)
+            self._say(f"[multi-scene] mesh (scene={self.n_scene}, seed={seed_ax}, "
+                      f"data={nd}): {n_seeds} seeds in {self.S} slots per scene")
+        else:
+            self._say(f"[multi-scene] single-device program: {self.n_scene} scenes x "
+                      f"{n_seeds} seeds")
+            if n_dev > 1 and self.rank0:
+                print_warning(
+                    f"[multi-scene] {self.n_scene} scenes do not divide the {n_dev} "
+                    "available devices: falling back to a single-device program holding "
+                    "all scenes' state on rank 0's card; the other ranks idle. Pick a "
+                    "scene count that divides the device count (or run groups of scenes "
+                    "separately).")
+        # the single-device branch runs on rank 0 alone
+        self.idle = self.mesh is None and not self.rank0
+        self.run_dirs = [path_mkdir(d) if self.rank0 else Path(d) for d in run_dirs]
+        if self.idle:
+            return
+        # this rank's scenes and seed slots (all of them on one rank)
+        self.scenes = (range(self.n_scene) if self.mesh is None else
+                       range(self.mesh.coords["scene"], self.mesh.coords["scene"] + 1))
+        self.slots = self.mesh.slot_slice(self.S) if self.mesh else slice(0, self.S)
 
         ckpt = None
         if resume:
@@ -94,7 +160,7 @@ class MultiSceneTrainer:
             if not path.exists():
                 raise FileNotFoundError(f"resume requested but {path} does not exist")
             ckpt = ck.read_pickle(path)
-            print_log(f"[multi-scene] resuming from {path}: epoch={ckpt['epoch']}, "
+            self._say(f"[multi-scene] resuming from {path}: epoch={ckpt['epoch']}, "
                       f"batch={ckpt['batch']}")
 
         self.loaders = [create_train_val_test_loader(c, device=self.device) for c in cfgs]
@@ -106,15 +172,17 @@ class MultiSceneTrainer:
         self.model.set_camera(self.datasets[0].K[0])
         self.cameras = [camera_state(self.model, d.K[0]) for d in self.datasets]
 
-        self.scene_seeds = [[c["training"].get("seed", 4321) + k for k in range(n_seeds)]
-                            for c in cfgs]
-        self.S = self.n_valid = n_seeds
-        print_log(f"[multi-scene] one card: {self.n_scene} scenes x {n_seeds} seeds")
         self.params = stacked_leaves([
-            stack_params([self.model.init_params(seed=s) for s in seeds])
-            for seeds in self.scene_seeds])
+            stack_params([self.model.init_params(seed=s)
+                          for s in self.scene_seeds[i][self.slots]])
+            for i in self.scenes])
         self.optimizer = create_optimizer(cfgs[0], self.params)
         self.scheduler = create_scheduler(cfgs[0], base_lrs(self.optimizer))
+        self.runner = self._gather = None
+        if self.mesh:
+            self.runner = MultiSceneRunner(self.model, self.optimizer, self.mesh,
+                                           self.cameras[self.scenes[0]])
+            self._gather = self._gather_slots
         self.dead = np.zeros((self.n_scene, self.S), bool)
         self.epoch_start, self.batch_start = 1, 1
         self.loss_sums = np.zeros((self.n_scene, self.S))
@@ -130,13 +198,16 @@ class MultiSceneTrainer:
         for ld in self.loaders:
             ld[0].set_epoch(self.epoch_start - 1)
         self._host = _HostWorker()
-        self._loss_buffer = []  # ((n_scene, S) device tensor, (n_scene,) n_real)
+        # ((n_local_scenes, S_local) device tensor, (n_scene,) n_real) per step
+        self._loss_buffer = []
 
         append = self.epoch_start > 1 or self.batch_start > 1
         resume_iter = (self.epoch_start - 1) * self.n_batches + self.batch_start - 1
+        # rank 0 alone writes the run directories
+        log = (lambda d: d / "train_metrics.tsv") if self.rank0 else (lambda d: None)
         self.train_metrics = [
             Metrics(*[f"loss_s{s}" for s in self.scene_seeds[i][: self.n_valid]],
-                    log_file=self.run_dirs[i] / "train_metrics.tsv", append=append,
+                    log_file=log(self.run_dirs[i]), append=append,
                     truncate_iter=resume_iter)
             for i in range(self.n_scene)]
         alpha_names = [f"alpha{k}" for k in range(self.model.n_blocks)]
@@ -144,11 +215,23 @@ class MultiSceneTrainer:
         for i in range(self.n_scene):
             per_seed = []
             for s in self.scene_seeds[i][: self.n_valid]:
-                d = (self.run_dirs[i] if self.n_valid == 1
+                d = (self.run_dirs[i] if self.n_valid == 1 or not self.rank0
                      else path_mkdir(self.run_dirs[i] / f"seed{s}"))
-                per_seed.append(Metrics(*alpha_names, log_file=d / "val_metrics.tsv",
-                                        append=append, truncate_iter=resume_iter))
+                per_seed.append(Metrics(
+                    *alpha_names, log_file=d / "val_metrics.tsv" if self.rank0 else None,
+                    append=append, truncate_iter=resume_iter))
             self.val_metrics.append(per_seed)
+
+    def _say(self, msg):
+        """Log on rank 0 only."""
+        if self.rank0:
+            print_log(msg)
+
+    def _gather_slots(self, t):
+        """(1, S_local, ...) of this rank -> (n_scene, S, ...) of every
+        scene and seed column."""
+        return self.mesh.gather(t.reshape((-1,) + t.shape[2:])).reshape(
+            (self.n_scene, self.S) + t.shape[2:])
 
     # ------------------------------------------------------------------
     # checkpoint / resume
@@ -156,8 +239,11 @@ class MultiSceneTrainer:
 
     def save(self, epoch, batch):
         """``multi_scene_model.pkl`` in the first run directory: a detached
-        copy now, the pickle on the host worker."""
-        snap = ck.snapshot(self.params, self.optimizer)
+        copy now, the pickle on the host worker. On a mesh the slots are
+        gathered from every rank and rank 0 writes."""
+        snap = gathered_snapshot(ck.snapshot(self.params, self.optimizer), self._gather)
+        if not self.rank0:
+            return
         meta = {
             "epoch": epoch, "batch": batch,
             "scene_seeds": [list(s) for s in self.scene_seeds], "n_valid": self.n_valid,
@@ -179,7 +265,8 @@ class MultiSceneTrainer:
         if [list(s) for s in ckpt["scene_seeds"]] != [list(s) for s in self.scene_seeds]:
             raise ValueError("resume on a different topology: checkpoint seeds "
                              f"{ckpt['scene_seeds']} != current {self.scene_seeds}")
-        ck.restore_stacked(ckpt["params"], ckpt["opt_state"], self.params, self.optimizer)
+        ck.restore_stacked(ckpt["params"], ckpt["opt_state"], self.params, self.optimizer,
+                           (slice(self.scenes.start, self.scenes.stop), self.slots))
         self.dead = np.asarray(ckpt["dead"], bool).copy()
         self.loss_sums = np.asarray(ckpt["loss_sums"], np.float64).copy()
         self.n_seen = np.broadcast_to(np.asarray(ckpt["n_seen"], np.int64),
@@ -194,15 +281,19 @@ class MultiSceneTrainer:
     # ------------------------------------------------------------------
 
     def _val_and_log(self, it, epoch, batch):
-        alphas = np.stack([
-            np.stack([self.model.get_opacities(slot(slot(self.params, i), j)).cpu().numpy()
-                      for j in range(self.S)]) for i in range(self.n_scene)])
+        alphas = torch.stack([
+            torch.stack([self.model.get_opacities(slot(slot(self.params, i), j))
+                         for j in range(n_slots(slot(self.params, i)))])
+            for i in range(n_slots(self.params))])
+        if self.mesh:
+            alphas = self._gather_slots(alphas)
+        alphas = alphas.cpu().numpy()
         alive = (alphas > 0.01).sum(axis=2) > 0
         for i in range(self.n_scene):
             for j in range(self.n_valid):
                 if not alive[i, j] and not self.dead[i, j]:
                     self.dead[i, j] = True
-                    print_log(f"[multi-scene] scene {i} seed {self.scene_seeds[i][j]} "
+                    self._say(f"[multi-scene] scene {i} seed {self.scene_seeds[i][j]} "
                               f"has no more blocks at epoch {epoch}, excluded from "
                               "selection")
                 self.val_metrics[i][j].update({f"alpha{k}": float(a)
@@ -217,7 +308,19 @@ class MultiSceneTrainer:
 
     def _train_step(self, ids_sc):
         """One Adam step of every (scene, seed) slot: scene i on its views
-        ``ids_sc[i]`` with its camera."""
+        ``ids_sc[i]`` with its camera (on a mesh: this rank's slots of its
+        scene on its shard of the views)."""
+        if self.runner:
+            i = self.scenes[0]
+            idx = _pad_ids(ids_sc[i], self.batch_size)[0][self.mesh.data_slice(self.batch_size)]
+            imgs, R, T = gather_views(self.datasets[i], idx, self.device)
+            gens = [torch.Generator(device=self.device).manual_seed(
+                step_seed(s, self._step_ctr)) for s in self.scene_seeds[i][self.slots]]
+            self._step_ctr += 1
+            rows = self.runner.step(self.params, self.phase, imgs, R, T, gens)
+            n_reals = [_pad_ids(ids, self.batch_size)[1] for ids in ids_sc]
+            self._loss_buffer.append((rows, np.array(n_reals, np.int64)))
+            return
         self.optimizer.zero_grad(set_to_none=True)
         rows, n_reals = [], []
         for i, ids in enumerate(ids_sc):
@@ -239,6 +342,10 @@ class MultiSceneTrainer:
             self._train_step(ids_sc)
 
     def run(self):
+        """-> (the stacked parameters of every slot, each scene's best seed
+        slot, the (n_scene, n_seeds) final losses); None on an idle rank."""
+        if self.idle:
+            return None
         try:
             return self._run()
         except BaseException:
@@ -276,7 +383,7 @@ class MultiSceneTrainer:
             if epoch % max(self.n_epoches // 10, 1) == 0 or epoch == 1:
                 self._drain_losses()
                 means = self.loss_sums / np.maximum(self.n_seen, 1)[:, None]
-                print_log(f"[multi-scene] epoch {epoch}/{self.n_epoches} "
+                self._say(f"[multi-scene] epoch {epoch}/{self.n_epoches} "
                           f"losses={np.round(means[:, : self.n_valid], 5).tolist()}"
                           f" ({time.time() - t0:.1f}s)")
 
@@ -286,7 +393,11 @@ class MultiSceneTrainer:
                           final_losses, np.inf)
         self.best = masked.argmin(axis=1)  # each scene's best seed slot
         self.save(self.n_epoches, self.n_batches)
-        snap = ck.snapshot(self.params, self.optimizer)
+        snap = gathered_snapshot(ck.snapshot(self.params, self.optimizer), self._gather)
+        # every slot's parameters, for the final evaluation
+        self.final_params = snap[0] if self.mesh else self.params
+        if not self.rank0:
+            return self.final_params, self.best, final_losses[:, : self.n_valid]
         for i in range(self.n_scene):
             scene_snap = slot_snapshot(snap, i)
             kw = self.cfgs[i].get("model", {})
@@ -298,11 +409,11 @@ class MultiSceneTrainer:
             b = int(self.best[i])
             ck.write_snapshot(self.run_dirs[i] / "model.pkl", slot_snapshot(scene_snap, b),
                               self.n_epoches, self.n_batches, model_kwargs=kw)
-            print_log(f"[multi-scene] scene {i} ({self.datasets[i].tag}): "
+            self._say(f"[multi-scene] scene {i} ({self.datasets[i].tag}): "
                       f"losses={final_losses[i, : self.n_valid].round(5).tolist()}"
                       f" -> seed {self.scene_seeds[i][b]}")
         self._host.join()  # the protocol checkpoint on disk before returning
-        return self.params, self.best, final_losses[:, : self.n_valid]
+        return self.final_params, self.best, final_losses[:, : self.n_valid]
 
     def _flush(self, pending, cur_iter, epoch):
         """Run a group and fire the interval actions it crossed."""
@@ -332,7 +443,10 @@ class MultiSceneTrainer:
         if not self._loss_buffer:
             return
         buf, self._loss_buffer = self._loss_buffer, []
-        rows = torch.stack([v for v, _ in buf]).cpu().numpy()
+        rows = torch.stack([v for v, _ in buf])
+        if self.mesh:  # (steps, 1, S_local) -> (steps, n_scene, S) of every rank
+            rows = self._gather_slots(rows.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
+        rows = rows.cpu().numpy()
         for row, (_, n_real) in zip(rows, buf):
             self.loss_sums += row * n_real[:, None]
             self.n_seen += n_real
@@ -348,13 +462,16 @@ class MultiSceneTrainer:
 
     def evaluate(self, quali=True, quali_kwargs=None):
         """Each scene's best seed evaluated into its run directory, with the
-        scene's camera; one LPIPS for all. -> [scores per scene]."""
+        scene's camera; one LPIPS for all. -> [scores per scene]. On a mesh
+        rank 0 evaluates every scene; the other ranks return []."""
+        if self.idle or not self.rank0:
+            return []
         assert hasattr(self, "best"), "evaluate() requires a finished run()"
         lpips = shared_lpips(self.model)
         results = []
         for i in range(self.n_scene):
             with use_camera(self.model, self.cameras[i]):
-                p = slot(slot(self.params, i), int(self.best[i]))
+                p = slot(slot(self.final_params, i), int(self.best[i]))
                 label = self.datasets[i].tag or f"scene{i}"
                 results += evaluate_slots(
                     self.model, self.cfgs[i], self.loaders[i][2], self.datasets[i],

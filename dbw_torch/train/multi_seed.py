@@ -1,9 +1,11 @@
-"""Multi-seed protocol on one card (PyTorch port of
-dbw_tpu/train/multi_seed.py; the reference's multi_pipeline.sh: several
-seeded runs of one scene, then selection of the lowest train loss).
+"""Multi-seed protocol (PyTorch port of dbw_tpu/train/multi_seed.py; the
+reference's multi_pipeline.sh: several seeded runs of one scene, then
+selection of the lowest train loss), on one card or on a mesh of ranks.
 
     python3 scripts/torch_multi_pipeline.py -t TAG -c synthetic/dtu_shaped.yml \\
         --seeds 11 22 33 44 55 [--cpu]
+    torchrun --nproc-per-node 4 scripts/torch_multi_pipeline.py ... [--n-data 2]
+        [--n-spatial 2]
 
 The S seeds' parameters are stacked leaves (S, ...) under one torch Adam
 with the texture group, and each step runs the seeds one after the other
@@ -37,22 +39,40 @@ file also holds a ``key``, the one a fresh JAX protocol starts from, so
 that the JAX package can resume it (its draws from there on are its own);
 a JAX-written file resumes here with the counter of its cursor.
 
+Under torchrun (a process group of several ranks, ``parallel/mesh.py``)
+the protocol takes the JAX package's mesh path: its validation and layout
+(``seed_layout``: an explicit ``n_data`` or ``n_spatial``, or the seed axis
+first with the leftover ranks on the data axis), the seeds padded to a
+multiple of the seed axis, each rank holding its seed column's slots and
+stepping them through ``MultiSeedRunner`` on its view shard and band. The
+per-slot losses, opacities and checkpoint state are gathered across the
+seed columns, so every rank keeps the whole run's bookkeeping; rank 0
+alone writes the run directory (the TSVs, the evolution stream,
+``multi_model.pkl`` in the JAX layout, ``seed{s}/model.pkl``,
+``seed_selection.tsv``) and runs the final evaluation. Each rank resumes
+its own slots from ``multi_model.pkl``, so a file written on N ranks
+resumes on one, and the other way round, when the padded seed slots agree
+(the JAX package's rule). One rank is a mesh of one (seed=1, data=1):
+its collectives do nothing, so the step is ``seed_step``'s bit for bit;
+``n_data`` or ``n_spatial`` above 1 raise there, as on one JAX device.
+
 Left out, as TPU machinery: the AOT cache, the device packer, the
-device-resident dataset and the scanned multi-step; and the device mesh:
-``n_data`` or ``n_spatial`` above 1 raise on one card, as the JAX package's
-do on one device.
+device-resident dataset and the scanned multi-step.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
-from ..parallel.seeds import seed_step, select_best_seed, slot, stacked_leaves
+from ..parallel.mesh import factor_devices, make_mesh, world
+from ..parallel.seeds import (MultiSeedRunner, n_slots, pad_seeds, select_best_seed, slot,
+                              stacked_leaves)
 from ..render.trajectory import to_u8
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.image import ImageLogger
@@ -80,35 +100,76 @@ def slot_snapshot(snap, i):
                  for f, v in st.items()} for k, st in states.items()}, rule)
 
 
-def check_one_card(n_data, n_spatial):
-    """The JAX package's validation of the mesh axes, on one card."""
+def seed_layout(n_dev, n_seeds, batch_size, n_data=None, n_spatial=None):
+    """The JAX protocol's validation of the mesh axes and its layout on
+    ``n_dev`` ranks -> (seed axis, data axis, sp axis, seed slots); on one
+    rank (1, 1, 1, n_seeds). An explicit axis is validated loudly (no fall-back);
+    without ``n_data`` the seed axis comes first (``factor_devices``) and
+    the leftover ranks become the data axis, or more seed slots when the
+    batch does not divide over them."""
     if n_data is not None and n_data < 1:
         raise ValueError(f"n_data must be >= 1, got {n_data}")
     if n_spatial is not None and int(n_spatial) < 1:
         raise ValueError(f"n_spatial must be >= 1, got {n_spatial}")
-    if n_data is not None and n_data > 1:
-        raise ValueError(f"n_data={n_data} requested but only 1 device present")
-    if n_spatial is not None and int(n_spatial) > 1:
-        raise ValueError(f"n_spatial={n_spatial} requested but only 1 device present")
+    if n_data is not None and n_data > 1 and n_dev == 1:
+        raise ValueError(f"n_data={n_data} requested but only {n_dev} device present")
+    n_sp = int(n_spatial) if n_spatial else 1
+    if n_sp > 1 and n_dev == 1:
+        raise ValueError(f"n_spatial={n_sp} requested but only {n_dev} device present")
+    if n_sp > 1:
+        if n_dev % n_sp:
+            raise ValueError(f"n_spatial={n_sp} does not divide {n_dev} devices")
+        n_dev = n_dev // n_sp
+        if n_data is None and n_seeds > n_dev:
+            raise ValueError(
+                f"n_spatial={n_sp} leaves {n_dev} device group(s) for {n_seeds} seeds "
+                "\u2014 reduce seeds or n_spatial")
+    if n_data is not None:
+        if n_dev % n_data:
+            raise ValueError(f"n_data={n_data} does not divide {n_dev} devices")
+        if batch_size % n_data:
+            raise ValueError(
+                f"batch_size={batch_size} is not divisible by n_data={n_data} (each "
+                f"data-axis device takes B/n_data views)")
+        seed_ax = n_dev // n_data
+    else:
+        seed_ax, n_data = factor_devices(n_dev, n_seeds=n_seeds)
+        if batch_size % n_data != 0:
+            seed_ax, n_data = n_dev, 1
+    slots = -(-n_seeds // seed_ax) * seed_ax
+    return seed_ax, n_data, n_sp, slots
+
+
+def gathered_snapshot(snap, gather=None):
+    """A ``checkpoint.snapshot`` of this rank's slots -> the snapshot of
+    every slot, each stacked tensor passed through ``gather`` (a mesh's
+    gather over its seed columns; none on the multi-scene trainer's single
+    device)."""
+    if gather is None:
+        return snap
+    copy, states, rule = snap
+    return ({k: gather(v) for k, v in copy.items()},
+            {k: {f: (gather(v) if torch.is_tensor(v) and v.ndim else v)
+                 for f, v in st.items()} for k, st in states.items()}, rule)
 
 
 class MultiSeedTrainer:
     """Trains S seeds of one scene together; selects the lowest train
-    loss."""
+    loss. ``world_size``: the ranks of the run, by default those of the
+    process group (one without torch.distributed); 1 runs this process
+    alone."""
 
     def __init__(self, cfg, run_dir, seeds=None, resume=False, n_data=None,
-                 n_spatial=None, device=DEFAULT_DEVICE):
+                 n_spatial=None, device=DEFAULT_DEVICE, world_size=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # TF32 off, as in the port Trainer
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        check_one_card(n_data, n_spatial)
-        self.run_dir = path_mkdir(run_dir)
         self.cfg = cfg
         ckpt = None
         if resume:
-            path = self.run_dir / MULTI_CKPT
+            path = Path(run_dir) / MULTI_CKPT
             if not path.exists():
                 raise FileNotFoundError(f"resume requested but {path} does not exist")
             ckpt = ck.read_pickle(path)
@@ -120,7 +181,20 @@ class MultiSeedTrainer:
         self.n_valid = len(self.seeds)
         tcfg = cfg["training"]
         self.batch_size = tcfg.get("batch_size", 4)
+        n_dev = world()[1] if world_size is None else int(world_size)
+        seed_ax, n_data, n_sp, slots = seed_layout(n_dev, self.n_valid, self.batch_size,
+                                                   n_data, n_spatial)
+        self.seeds, self.n_valid = pad_seeds(self.seeds, slots)
+        self.mesh = make_mesh(seed_ax, n_data, world_size=n_dev, n_spatial=n_sp)
+        self.rank0 = self.mesh.rank == 0
+        self._say(f"[multi-seed] mesh (seed={seed_ax}, data={n_data}"
+                  + (f", sp={n_sp}" if n_sp > 1 else "")
+                  + f"): {self.n_valid} seeds in {slots} slots "
+                  f"({slots - self.n_valid} padded)")
         S = len(self.seeds)
+        # this rank's seed slots (all of them on one rank)
+        self.slots = self.mesh.slot_slice(S)
+        self.run_dir = path_mkdir(run_dir) if self.rank0 else Path(run_dir)
         self.train_loader, self.val_loader, self.test_loader = (
             create_train_val_test_loader(cfg, device=self.device))
         self.dataset = self.train_loader.dataset
@@ -132,9 +206,11 @@ class MultiSeedTrainer:
         self.train_stat_interval = tcfg.get("train_stat_interval", 0)
         self.val_stat_interval = tcfg.get("val_stat_interval", 0)
 
-        self.params = stacked_leaves([self.model.init_params(seed=s) for s in self.seeds])
+        self.params = stacked_leaves([self.model.init_params(seed=s)
+                                      for s in self.seeds[self.slots]])
         self.optimizer = create_optimizer(cfg, self.params)
         self.scheduler = create_scheduler(cfg, base_lrs(self.optimizer))
+        self.runner = MultiSeedRunner(self.model, self.optimizer, self.mesh)
         self.dead = np.zeros(S, bool)
         self.epoch_start, self.batch_start = 1, 1
         self.loss_sums, self.n_seen = np.zeros(S), 0
@@ -150,14 +226,18 @@ class MultiSeedTrainer:
 
         append = self.epoch_start > 1 or self.batch_start > 1
         resume_iter = (self.epoch_start - 1) * self.n_batches + self.batch_start - 1
+        # rank 0 alone writes the run directory
+        log = (lambda *parts: self.run_dir.joinpath(*parts)) if self.rank0 else (
+            lambda *parts: None)
         self.train_metrics = Metrics(
             *[f"loss_s{s}" for s in self.orig_seeds],
-            log_file=self.run_dir / "train_metrics.tsv", append=append,
-            truncate_iter=resume_iter)
+            log_file=log("train_metrics.tsv"), append=append, truncate_iter=resume_iter)
         alpha_names = [f"alpha{k}" for k in range(self.model.n_blocks)]
+        if self.rank0:
+            for s in self.orig_seeds:
+                path_mkdir(self.run_dir / f"seed{s}")
         self.val_metrics = [
-            Metrics(*alpha_names,
-                    log_file=path_mkdir(self.run_dir / f"seed{s}") / "val_metrics.tsv",
+            Metrics(*alpha_names, log_file=log(f"seed{s}", "val_metrics.tsv"),
                     append=append, truncate_iter=resume_iter)
             for s in self.orig_seeds]
 
@@ -168,12 +248,17 @@ class MultiSeedTrainer:
                 src = self.val_loader if len(self.val_loader) > 0 else self.train_loader
                 samples, _ = next(iter(src))
             self.viz_samples = {k: v[:4] for k, v in samples.items()}
-            self.rec_logger = ImageLogger(self.run_dir / "reconstructions_best",
-                                          self.viz_samples)
+            self.rec_logger = (ImageLogger(self.run_dir / "reconstructions_best",
+                                           self.viz_samples) if self.rank0 else None)
             self._viz_R = torch.from_numpy(self.viz_samples["R"]).to(self.device)
             self._viz_T = torch.from_numpy(self.viz_samples["T"]).to(self.device)
         self._host = _HostWorker()
-        self._loss_buffer = []  # ((S,) device tensor, n_real) per step
+        self._loss_buffer = []  # ((S_local,) device tensor, n_real) per step
+
+    def _say(self, msg):
+        """Log on rank 0 only."""
+        if self.rank0:
+            print_log(msg)
 
     # ------------------------------------------------------------------
     # checkpoint / resume
@@ -182,8 +267,11 @@ class MultiSeedTrainer:
     def save(self, epoch, batch):
         """``multi_model.pkl``: every slot's parameters and Adam state, the
         cursor and the bookkeeping; a detached copy now, the pickle on the
-        host worker."""
-        snap = ck.snapshot(self.params, self.optimizer)
+        host worker. On a mesh the slots are gathered from every seed
+        column and rank 0 writes."""
+        snap = gathered_snapshot(ck.snapshot(self.params, self.optimizer), self.mesh.gather)
+        if not self.rank0:
+            return
         meta = {
             "epoch": epoch, "batch": batch,
             "orig_seeds": list(self.orig_seeds), "seeds": list(self.seeds),
@@ -205,7 +293,8 @@ class MultiSeedTrainer:
         if [int(s) for s in ckpt["seeds"]] != self.seeds:
             raise ValueError("resume on a different device topology: checkpoint seed "
                              f"slots {list(ckpt['seeds'])} != current {self.seeds}")
-        ck.restore_stacked(ckpt["params"], ckpt["opt_state"], self.params, self.optimizer)
+        ck.restore_stacked(ckpt["params"], ckpt["opt_state"], self.params, self.optimizer,
+                           self.slots)
         self.dead = np.asarray(ckpt["dead"], bool).copy()
         self.loss_sums = np.asarray(ckpt["loss_sums"], np.float64).copy()
         self.n_seen = int(ckpt["n_seen"])
@@ -226,13 +315,14 @@ class MultiSeedTrainer:
     def _val_and_log(self, it, epoch, batch):
         """Per-seed opacity streams and the dead-seed rule (the reference
         Trainer's per run)."""
-        alphas = np.stack([self.model.get_opacities(slot(self.params, i)).cpu().numpy()
-                           for i in range(len(self.seeds))])
+        alphas = self.mesh.gather(torch.stack([self.model.get_opacities(slot(self.params, i))
+                                               for i in range(n_slots(self.params))]))
+        alphas = alphas.cpu().numpy()
         alive = (alphas > 0.01).sum(axis=1) > 0
         for i in range(self.n_valid):
             if not alive[i] and not self.dead[i]:
                 self.dead[i] = True
-                print_log(f"[multi-seed] seed {self.seeds[i]} has no more blocks at "
+                self._say(f"[multi-seed] seed {self.seeds[i]} has no more blocks at "
                           f"epoch {epoch}, excluded from selection")
             self.val_metrics[i].update({f"alpha{k}": float(a)
                                         for k, a in enumerate(alphas[i])})
@@ -246,16 +336,20 @@ class MultiSeedTrainer:
     def _log_best_recon(self, it, epoch):
         """The current best (lowest running loss) live seed's render of the
         viz views (``model.predict`` in the eval phase, as the JAX
-        protocol); the encoding runs on the host worker."""
+        protocol); the encoding runs on the host worker. On a mesh the
+        slots are gathered and rank 0 renders."""
         best = int(np.argmin(self._masked_losses(self.loss_sums)))
+        params = {k: self.mesh.gather(v) for k, v in self.params.items()}
+        if not self.rank0:
+            return
         phase = self.model.phase_for_epoch(epoch - 1, training=False)
-        rec = self.model.predict(slot(self.params, best), phase, self._viz_R,
+        rec = self.model.predict(slot(params, best), phase, self._viz_R,
                                  self._viz_T)[0]
         rec = to_u8(rec).cpu().numpy()
         self._host.submit(lambda: self.rec_logger.save(rec, it))
 
     def _log_train(self, it, epoch, batch):
-        print_log(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
+        self._say(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
                   f"batch {batch}/{self.n_batches} "
                   f"train_metrics: {self.train_metrics}"[:1000])
         self.train_metrics.log_and_reset(it=it, epoch=epoch, batch=batch)
@@ -265,14 +359,15 @@ class MultiSeedTrainer:
     # ------------------------------------------------------------------
 
     def _train_step(self, ids):
-        """One Adam step of every seed on the views ``ids``."""
+        """One Adam step of every seed on the views ``ids`` (on a mesh: of
+        this rank's seeds on its shard of the views)."""
         idx, n_real = _pad_ids(ids, self.batch_size)
+        idx = idx[self.mesh.data_slice(self.batch_size)]
         imgs, R, T = gather_views(self.dataset, idx, self.device)
         gens = [torch.Generator(device=self.device).manual_seed(
-            step_seed(s, self._step_ctr)) for s in self.seeds]
+            step_seed(s, self._step_ctr)) for s in self.seeds[self.slots]]
         self._step_ctr += 1
-        losses = seed_step(self.model, self.params, self.optimizer, self.phase,
-                           imgs, R, T, gens)
+        losses = self.runner.step(self.params, self.phase, imgs, R, T, gens)
         # no sync here: the losses stay on the device until an interval
         self._loss_buffer.append((losses, n_real))
 
@@ -319,20 +414,24 @@ class MultiSeedTrainer:
             if epoch % max(self.n_epoches // 10, 1) == 0 or epoch == 1:
                 self._drain_losses()
                 means = self.loss_sums / max(self.n_seen, 1)
-                print_log(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
+                self._say(f"[multi-seed] epoch {epoch}/{self.n_epoches} "
                           f"losses={np.round(means, 5).tolist()} "
                           f"({time.time() - t0:.1f}s)")
 
         self._drain_losses()
         final_losses = self.loss_sums / max(self.n_seen, 1)
-        best_params, best = select_best_seed(self.params,
+        self.save(self.n_epoches, self.n_batches)
+        snap = gathered_snapshot(ck.snapshot(self.params, self.optimizer), self.mesh.gather)
+        # every slot's parameters, for the selection and the final evaluation
+        self.final_params = snap[0]
+        best_params, best = select_best_seed(self.final_params,
                                              self._masked_losses(final_losses))
         self.best = best
-        print_log(f"[multi-seed] final per-seed loss="
+        self._say(f"[multi-seed] final per-seed loss="
                   f"{final_losses[: self.n_valid].round(5).tolist()}"
                   f" -> auto-selected seed {self.seeds[best]} (min train loss)")
-        self.save(self.n_epoches, self.n_batches)
-        snap = ck.snapshot(self.params, self.optimizer)
+        if not self.rank0:
+            return best_params, self.seeds[best], final_losses[: self.n_valid]
         kw = self.cfg.get("model", {})
         for i, s in enumerate(self.seeds[: self.n_valid]):
             ck.write_snapshot(self.run_dir / f"seed{s}" / "model.pkl",
@@ -357,7 +456,9 @@ class MultiSeedTrainer:
         if not self._loss_buffer:
             return
         buf, self._loss_buffer = self._loss_buffer, []
-        rows = torch.stack([v for v, _ in buf]).cpu().numpy()
+        # every seed column's slots
+        rows = self.mesh.gather(torch.stack([v for v, _ in buf]).T.contiguous()).T
+        rows = rows.cpu().numpy()
         for row, (_, n_real) in zip(rows, buf):
             self.loss_sums[:] = self.loss_sums + row * n_real
             self.n_seen += n_real
@@ -391,14 +492,18 @@ class MultiSeedTrainer:
     def evaluate(self, per_seed_full=False, quali_kwargs=None):
         """``final_scores.tsv`` for every seed in ``seed{s}/`` (the full
         evaluation with ``per_seed_full``), and the best seed's full
-        evaluation in the run directory; one LPIPS for all."""
+        evaluation in the run directory; one LPIPS for all. On a mesh rank 0
+        evaluates every slot and the other ranks return None."""
         assert hasattr(self, "best"), "evaluate() requires a finished run()"
+        if not self.rank0:
+            return None
         seeds = self.seeds[: self.n_valid]
+        params = self.final_params
         scores = evaluate_slots(
             self.model, self.cfg, self.test_loader, self.dataset,
-            [(slot(self.params, i), self.run_dir / f"seed{s}", per_seed_full, f"seed{s}")
+            [(slot(params, i), self.run_dir / f"seed{s}", per_seed_full, f"seed{s}")
              for i, s in enumerate(seeds)]
-            + [(slot(self.params, self.best), self.run_dir, True,
+            + [(slot(params, self.best), self.run_dir, True,
                 f"best=seed{self.seeds[self.best]}")],
             quali_kwargs, shared_lpips(self.model))
         return dict(zip(seeds + ["best"], scores))

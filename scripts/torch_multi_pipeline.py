@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
 """The multi-seed protocol with the PyTorch port (the twin of
 scripts/multi_pipeline.py): several seeds of one scene trained together on
-one card, the seed of the lowest train loss selected and evaluated.
+one card or on several, the seed of the lowest train loss selected and
+evaluated.
 
     python3 scripts/torch_multi_pipeline.py -t TAG -c synthetic/dtu_shaped.yml \\
         --seeds 11 22 33 44 55 [--n-traj-videos 5] [--per-seed-full] [--resume]
         [--out DIR] [--resume-from DIR] [--cpu]
+    torchrun --nproc-per-node 4 scripts/torch_multi_pipeline.py -t TAG \\
+        -c synthetic/dtu_shaped.yml --seeds 11 22 33 44 55 [--n-data N] [--n-spatial N]
+
+Under torchrun the ranks form the JAX package's device mesh, one rank per
+card (``dbw_torch/parallel/mesh.py``; NCCL, or gloo when ranks share a
+card, and gloo with ``--cpu``): ``--n-data`` splits each batch's views and
+``--n-spatial`` each view's rows over the ranks of a seed; without them
+the seeds spread over the ranks first. Rank 0 writes the run directory.
 
 The run directory ``runs/<dataset>/<TAG>`` is the JAX protocol's: per seed
 ``seed{s}/model.pkl``, ``seed{s}/val_metrics.tsv`` and
@@ -60,12 +69,7 @@ def copy_out(run_dir, out, max_bytes):
 
 
 def main():
-    from dbw_torch.train.multi_seed import MultiSeedTrainer
-    from dbw_torch.utils.config import dump_yaml, load_yaml
-    from dbw_torch.utils.device import resolve_device
-    from dbw_torch.utils.logger import create_logger, print_log
-    from dbw_torch.utils.misc import path_mkdir
-    from dbw_torch.utils.path import CONFIGS_PATH, RUNS_PATH
+    from dbw_torch.parallel.mesh import close_distributed, init_distributed
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-t", "--tag", required=True)
@@ -74,9 +78,9 @@ def main():
     p.add_argument("--n-seeds", type=int, default=5)
     p.add_argument("--seeds", type=int, nargs="*", default=None)
     p.add_argument("--n-data", type=int, default=None,
-                   help="data-axis width; above 1 needs several cards and raises")
+                   help="data-axis width: ranks that split each batch's views")
     p.add_argument("--n-spatial", type=int, default=None,
-                   help="pixel-band axis width; above 1 needs several cards and raises")
+                   help="pixel-band axis width: ranks that split each view's rows")
     p.add_argument("--resume", action="store_true",
                    help="continue from the run dir's multi_model.pkl")
     p.add_argument("--per-seed-full", action="store_true",
@@ -89,21 +93,44 @@ def main():
                    "by --out into the run dir and resume from it")
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
     args = p.parse_args()
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = init_distributed("cpu" if args.cpu else "cuda")
+    try:
+        run(args, device)
+    finally:
+        close_distributed()
 
+
+def run(args, device):
+    import torch.distributed as dist
+
+    from dbw_torch.parallel.mesh import world
+    from dbw_torch.train.multi_seed import MultiSeedTrainer
+    from dbw_torch.utils.config import dump_yaml, load_yaml
+    from dbw_torch.utils.logger import create_logger, print_log
+    from dbw_torch.utils.misc import path_mkdir
+    from dbw_torch.utils.path import CONFIGS_PATH, RUNS_PATH
+
+    rank, world_size = world()
     default_path = CONFIGS_PATH / args.default if args.default else None
     cfg = load_yaml(CONFIGS_PATH / args.config, default_path)
-    seeds = args.seeds or [random.randint(1, 1_000_000) for _ in range(args.n_seeds)]
-    run_dir = path_mkdir(RUNS_PATH / cfg["dataset"]["name"] / args.tag)
-    resume = args.resume
-    if args.resume_from:
-        shutil.copytree(args.resume_from, run_dir, dirs_exist_ok=True)
-        resume = True
-    create_logger(run_dir)
-    dump_yaml(cfg, run_dir / Path(args.config).name)
-    print_log(f"torch_multi_pipeline: seeds={seeds}, run_dir={run_dir}, device={device}")
+    seeds = [args.seeds or [random.randint(1, 1_000_000) for _ in range(args.n_seeds)]]
+    if world_size > 1:
+        dist.broadcast_object_list(seeds, src=0)  # one draw for every rank
+    seeds = seeds[0]
+    run_dir = RUNS_PATH / cfg["dataset"]["name"] / args.tag
+    resume = args.resume or bool(args.resume_from)
+    if rank == 0:
+        path_mkdir(run_dir)
+        if args.resume_from:
+            shutil.copytree(args.resume_from, run_dir, dirs_exist_ok=True)
+        create_logger(run_dir)
+        dump_yaml(cfg, run_dir / Path(args.config).name)
+        print_log(f"torch_multi_pipeline: seeds={seeds}, run_dir={run_dir}, device={device}, "
+                  f"ranks={world_size}")
+    if world_size > 1:
+        dist.barrier()  # the run directory in place before any rank reads it
 
-    out = path_mkdir(ROOT / args.out) if args.out else None
+    out = path_mkdir(ROOT / args.out) if args.out and rank == 0 else None
     stop = threading.Event()
     max_bytes = OUT_MAX_MIB * 2**20
 
@@ -127,10 +154,11 @@ def main():
         steps = ((trainer.n_epoches - trainer.epoch_start + 1) * trainer.n_batches
                  - trainer.batch_start + 1)
         S = len(trainer.seeds)
-        print_log(f"torch_multi_pipeline: built in {t_built - t0:.1f} s; {steps} steps of "
-                  f"{S} seeds in {t_run - t_built:.1f} s "
-                  f"({S * steps / (t_run - t_built):.3f} seed-steps/s, interval work "
-                  f"included); final eval {t_eval - t_run:.1f} s")
+        if rank == 0:
+            print_log(f"torch_multi_pipeline: built in {t_built - t0:.1f} s; {steps} steps "
+                      f"of {S} seeds in {t_run - t_built:.1f} s "
+                      f"({S * steps / (t_run - t_built):.3f} seed-steps/s, interval work "
+                      f"included); final eval {t_eval - t_run:.1f} s")
     finally:
         stop.set()
         if out is not None:

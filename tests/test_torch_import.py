@@ -34,6 +34,7 @@ MODULES = [
     "dbw_torch.eval.dtu_eval", "dbw_torch.eval.mesh_scores", "dbw_torch.data.dtu",
     "dbw_torch.data.bmvs", "dbw_torch.data.scan_writer", "dbw_torch.native",
     "dbw_torch.parallel", "dbw_torch.parallel.seeds", "dbw_torch.parallel.scenes",
+    "dbw_torch.parallel.mesh",
     "dbw_torch.train.multi_seed", "dbw_torch.train.multi_scene",
     "dbw_torch.losses", "dbw_torch.data.nerfstudio", "dbw_torch.ops.mesh_utils",
     "dbw_torch.eval.baselines", "dbw_torch.models.tools",
@@ -54,6 +55,22 @@ def test_port_imports_no_jax():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "from dbw_torch.native import get_lib\n"
         "assert 'dbw_tpu' not in str(get_lib()._name)\n"
+        f"bad = {BAD}\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_multi_card_script_imports_no_jax():
+    """scripts/torch_multi_card.py (and chip_smoke.py, which it imports)
+    loads no JAX module."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        "import torch_multi_card\n"
         f"bad = {BAD}\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
