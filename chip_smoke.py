@@ -64,18 +64,30 @@ Phases, one line each (or a few):
 11. protocol: dbw_torch.train.multi_seed.MultiSeedTrainer on the shipped
    config at full width with seeds 11 22 33 44 55 (only n_epoches, the
    stat intervals and the final eval's video knobs overridden: 2 epochs,
-   26 iterations, one val interval and save): three uninterrupted runs
-   (their largest spread over the seeds sets the tolerance: K3-K5's
-   atomics add in any order), a fourth killed after its save and resumed,
-   which must end within that tolerance of the first; the first's final evaluation and its whole run directory,
-   every kernel launched in it; a 1-seed protocol against the Trainer with
-   the same seed over the same 10 logged steps; seed-steps/s beside phase
-   8's steps/s, peak memory, the launch counts and seed_selection.tsv;
+   26 iterations, one val interval and save), under the default seed
+   executor, batched (the 5 slots' 20 views in one step, one launch of
+   each kernel): three uninterrupted runs (their largest spread over the
+   seeds sets the tolerance: K3-K5's atomics add in any order), a fourth
+   killed after its save and resumed, which must end within that
+   tolerance of the first; the first's final evaluation and its whole run
+   directory, every kernel launched in it; a fifth run under
+   DBW_SEED_EXEC=map (the slots one after the other), whose final losses
+   must lie within the tolerance of the first's. The batched loop must
+   launch each kernel as often a iteration as phase 4's step does, the
+   map loop 5 times that. The step alone, batched and map (5 steps on
+   phase 4's inputs, then a profiler trace of 3: ms, seed-steps/s, peak
+   memory, the device's idle share). Each kernel against its plain twin
+   at the batched step's shapes (blocks and env pass of 20 views; the
+   plain twins timed by one call). A 1-seed protocol against the Trainer
+   with the same seed over the same 10 logged steps; seed-steps/s of both
+   executors beside phase 8's steps/s, peak memory, the launch counts and
+   seed_selection.tsv;
 12. scenes: dbw_torch.train.multi_scene.MultiSceneTrainer on two synthetic
    scenes of the shipped config (dataset seeds 3 and 5, two training
-   seeds), full width, 1 seed each, 2 epochs, evaluate(quali=False): each
-   run directory's files, finite losses that differ between the scenes,
-   seed-steps/s;
+   seeds), full width, 1 seed each, 2 epochs, evaluate(quali=False), both
+   scenes in one batched (scene, seed) step: each run directory's files,
+   finite losses that differ between the scenes, seed-steps/s, one launch
+   of each kernel a iteration (phase 4's step's counts);
 13. lit: the shipped config at full width with only the renderer's
    shading_type (flat, gouraud, phong), lights (directional, point) and
    cameras (fov) overridden takes 3 Adam steps of each lit type: finite
@@ -107,12 +119,13 @@ Phases, one line each (or a few):
    coordinate k on the sp layout, the whole image otherwise: read from
    their pix_to_face), the gradient all_reduce and the band gather timed
    alone; then
-   the 5-seed protocol on its default layout (seed=2: 6 slots, 1 padded),
-   26 iterations with a save, uninterrupted and killed after the save and
+   the 5-seed protocol on its default layout (seed=2: 6 slots, 1 padded,
+   each rank's 3 slots batched: phase 4's launches a iteration), 26
+   iterations with a save, uninterrupted and killed after the save and
    resumed, its seeds' final losses against phase 11's run A within phase
    11's tolerance; steps/s and seed-steps/s beside one card's. A rank that
    fails fails the phase. Rehearse it here with 2 gloo ranks on the CPU:
-   ``phase_device_mesh(cfg, torch.device("cpu"), numbers, setup=fn)``, fn
+   ``phase_device_mesh(cfg, torch.device("cpu"), numbers, step, setup=fn)``, fn
    setting ``IMG_SIZE`` (30, 40), ``CONFIG`` (a small copy of the shipped
    config) and the protocol's val interval (9), stubbing
    ``torch.cuda.synchronize`` and counting the dispatchers (renderer's
@@ -130,6 +143,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -213,6 +227,9 @@ N_SLOT_STEPS = 10
 # one in a hundred
 PROTOCOL_SPREAD_FACTOR = 4.0
 PROTOCOL_RTOL_FLOOR = 2e-5
+# the protocol's step alone, batched and map, on the main path's inputs:
+# steps timed after a warm-up step, then a profiler trace of 3 more
+N_PROBE_STEPS = 5
 # the scenes phase: two synthetic scenes of the shipped config
 SCENE_DATASET_SEEDS = (3, 5)
 SCENES_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20)
@@ -452,12 +469,17 @@ def k1_bound(packed, out, blur, rcfg, row_range=None):
                  flops_per_pair=FLOPS_PER_PAIR)
 
 
-def record(checks, name, path, err, ok, fn, plain_fn, work, library_fn=None):
+def record(checks, name, path, err, ok, fn, plain_fn, work, library_fn=None,
+           plain_runs=20):
     """One check of kernel ``name`` at ``path``: its error, the times of the
     kernel's wrapper, its plain twin and its library call, and, for the
-    kernels of DEVICE_KERNELS, the profiler's device time of one launch."""
+    kernels of DEVICE_KERNELS, the profiler's device time of one launch.
+    ``plain_runs`` 1: the plain twin timed by one call after its warm-up
+    (the batched shapes, where it takes up to a second)."""
+    plain_ms = (cuda_ms(plain_fn) if plain_runs > 1
+                else cuda_ms(plain_fn, runs=1, pairs=1))
     checks.setdefault(name, []).append(dict(
-        path=path, max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn),
+        path=path, max_abs_err=err, ms=cuda_ms(fn), plain_ms=plain_ms, plain_calls=plain_runs,
         library_ms=None if library_fn is None else cuda_ms(library_fn),
         device_ms=device_ms(fn, DEVICE_KERNELS[name]) if name in DEVICE_KERNELS else None,
         **work, ok=ok))
@@ -482,9 +504,10 @@ def k4_library_call(id00, wx, wy, g, R, TW):
     return index_add_call(t[keep], v[keep].contiguous(), R)
 
 
-def check_soft_pass(checks, path, model, scene, phase, R, T, gen):
+def check_soft_pass(checks, path, model, scene, phase, R, T, gen, plain_runs=20):
     """K1 soft, K2, K3 and K4 against their plain versions on one scene of
-    the soft renderer, at the shapes the path ``path`` gives them."""
+    the soft renderer, at the shapes the path ``path`` gives them (a
+    slot-batched scene: its S * B views, R and T per view)."""
     from dbw_torch.render import fragment as fr
     from dbw_torch.render import rasterize as rz
     from dbw_torch.render.renderer import fragment_streams
@@ -505,7 +528,7 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen):
     record(checks, "K1_select", path, dz, ok,
            lambda: rz.rasterize_cuda(packed, blur, rcfg),
            lambda: rz.rasterize_plain(packed, blur, rcfg_plain),
-           k1_bound(packed, p2f, blur, rcfg))
+           k1_bound(packed, p2f, blur, rcfg), plain_runs=plain_runs)
 
     # K2
     table, ids, vld, px, py = fragment_streams(scene, geom, p2f)
@@ -522,18 +545,19 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen):
            lambda: fr.frag_fwd_cuda(table, ids, vld, px, py, sigma, flags),
            lambda: fr.frag_fwd_plain(table, ids, vld, px, py, sigma, flags),
            bound(nbytes(table, ids, vld, px, py, *out), N * FLOPS_PER_ITEM["K2_frag_fwd"],
-                 items=N))
+                 items=N), plain_runs=plain_runs)
 
     check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags,
-                   rcfg.faces_per_pixel, gen)
+                   rcfg.faces_per_pixel, gen, plain_runs)
 
     # K4, in the pass's (P, K) fragment layout
     g = torch.randn((ids.numel(), 3), generator=gen, device=ids.device) * vld[:, None]
     check_texel_grad(checks, path, out[0], out[1], out[2], g, M * TH * TW, TW,
-                     rcfg.faces_per_pixel)
+                     rcfg.faces_per_pixel, plain_runs)
 
 
-def check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags, K, gen):
+def check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags, K, gen,
+                   plain_runs=20):
     """K3 against its plain twin on one pass's fragment streams (N = P * K
     fragments in the layout n = pixel * K + slot), with a seeded cotangent
     of alpha on the valid fragments."""
@@ -548,7 +572,7 @@ def check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags, K, gen):
     record(checks, "K3_frag_bwd", path, err3, ok3,
            lambda: fr.frag_bwd_cuda(*args3), lambda: fr.frag_bwd_plain(*args3),
            bound(nbytes(table, ids, vld, px, py, d_alpha, got3),
-                 N * FLOPS_PER_ITEM["K3_frag_bwd"], items=N))
+                 N * FLOPS_PER_ITEM["K3_frag_bwd"], items=N), plain_runs=plain_runs)
 
 
 def check_band_frag_bwd(checks, model, scene, phase, R, T, gen):
@@ -571,7 +595,7 @@ def check_band_frag_bwd(checks, model, scene, phase, R, T, gen):
     check_frag_bwd(checks, "band", *streams, sigma, flags, rcfg.faces_per_pixel, gen)
 
 
-def check_texel_grad(checks, path, id00, wx, wy, g, R, TW, K):
+def check_texel_grad(checks, path, id00, wx, wy, g, R, TW, K, plain_runs=20):
     """K4 against its plain version, its bound and its index_add_ call."""
     from dbw_torch.ops import texel_grad as tg
 
@@ -584,18 +608,18 @@ def check_texel_grad(checks, path, id00, wx, wy, g, R, TW, K):
            lambda: tg.quad_maps_grad_cuda(*args4, K), lambda: tg.quad_maps_grad_plain(*args4),
            bound(nbytes(id00, wx, wy, g, got), N * FLOPS_PER_ITEM["K4_texel_grad"],
                  items=N),
-           k4_library_call(id00, wx, wy, g, R, TW))
+           k4_library_call(id00, wx, wy, g, R, TW), plain_runs=plain_runs)
 
 
-def check_env_pass(checks, model, params, phase, R, T, gen):
+def check_env_pass(checks, model, params, phase, R, T, gen, path="env pass", plain_runs=20):
     """K1 hard, K4 and K5 against their plain versions on the env pass's
-    own inputs (dome + ground, K=1), formed as Renderer.shade forms them."""
+    own inputs (dome + ground, K=1), formed as Renderer.shade forms them
+    (stacked params: the S slots' S * B views, R and T per view)."""
     from dbw_torch.ops import scatter as sc
     from dbw_torch.render import rasterize as rz
     from dbw_torch.render.fragment import bary_uv, texel_coords
     from dbw_torch.render.renderer import fragment_streams
 
-    path = "env pass"
     env, _ = model.build_env(params, phase)
     erend = model.renderer_env
     egeom = rz.project_faces(env.verts, env.faces, R, T, erend.camera,
@@ -612,7 +636,7 @@ def check_env_pass(checks, model, params, phase, R, T, gen):
     record(checks, "K1_select_hard", path, dz, ok,
            lambda: rz.rasterize_cuda(epacked, 0.0, ecfg, hard=True),
            lambda: rz.rasterize_plain(epacked, 0.0, ecfg_plain),
-           k1_bound(epacked, ep2f, 0.0, ecfg))
+           k1_bound(epacked, ep2f, 0.0, ecfg), plain_runs=plain_runs)
 
     # the gathered face rows of the real selection and their texel coords
     etable, eids, evld, epx, epy = fragment_streams(env, egeom, ep2f, detach_z=False)
@@ -625,7 +649,7 @@ def check_env_pass(checks, model, params, phase, R, T, gen):
 
     # K4 (the d_maps of sample_quad_diff), K = 1
     g = torch.randn((N, 3), generator=gen, device=eidx.device) * evld[:, None]
-    check_texel_grad(checks, path, id00, wx, wy, g, M * TH * TW, TW, 1)
+    check_texel_grad(checks, path, id00, wx, wy, g, M * TH * TW, TW, 1, plain_runs)
 
     # K5: a seeded cotangent of the (N, 20) gathered rows, its first 12
     # columns added into the first 12 of a zeroed (F, 20) gradient, as the
@@ -654,7 +678,8 @@ def check_env_pass(checks, model, params, phase, R, T, gen):
            lambda: sc.small_table_scatter_add_cuda(eidx, upd, n_rows),
            lambda: sc.small_table_scatter_add_plain(eidx, upd, n_rows),
            bound(nbytes(eidx, upd, got5), N * FLOPS_PER_ITEM["K5_small_scatter"], items=N),
-           index_add_call(eidx[keep].long(), upd[keep].contiguous(), n_rows))
+           index_add_call(eidx[keep].long(), upd[keep].contiguous(), n_rows),
+           plain_runs=plain_runs)
 
 
 def check_viz_selection(checks, model, params, R, T):
@@ -701,7 +726,7 @@ def check_viz_selection(checks, model, params, R, T):
             ms=cuda_ms(lambda: rz.rasterize_cuda(packed, 0.0, rcfg, hard=True)),
             plain_ms=cuda_ms(lambda: rz.rasterize_plain(packed, 0.0, rcfg_plain),
                              runs=1, pairs=1),
-            library_ms=None, device_ms=None, ok=n_mis == 0,
+            plain_calls=1, library_ms=None, device_ms=None, ok=n_mis == 0,
             **k1_bound(packed, got, 0.0, rcfg)))
         del got, ref
 
@@ -725,23 +750,30 @@ def phase_kernels(model, device):
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
         check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
         check_viz_selection(checks, model, params, R, T)
+    report_checks("kernels", checks)
+    return {n: dict(max_abs_err=max(c["max_abs_err"] for c in cs),
+                    **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "bound_counts", "library_ms", "device_ms")},
+                    checks=cs) for n, cs in checks.items()}
+
+
+def report_checks(phase, checks):
+    """Print each kernel check's times and bound; fail if one disagreed."""
     for name, cs in checks.items():
         for c in cs:
             lib = "" if c["library_ms"] is None else f", index_add_ {c['library_ms']:.4f} ms"
             dev = "" if name not in DEVICE_KERNELS else (
                 "; device time of one launch not measured" if c["device_ms"] is None
                 else f"; device time of one launch {c['device_ms']:.4f} ms (profiler)")
-            say("kernels", f"{name} [{c['path']}]: kernel {c['ms']:.4f} ms, plain "
+            plain = ("" if c["plain_calls"] > 1
+                     else "; the plain twin's one call after a warm-up")
+            say(phase, f"{name} [{c['path']}]: kernel {c['ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.4f} ms{lib} (CUDA events around 20 calls, median of "
-                f"5){dev}; bound {c['bound_ms']:.4f} ms by {c['bound_by']} "
+                f"5{plain}){dev}; bound {c['bound_ms']:.4f} ms by {c['bound_by']} "
                 f"{c['bound_counts']}, {c['bound_ms'] / c['ms']:.3f} of it")
     bad = [f"{n} [{c['path']}]" for n, cs in checks.items() for c in cs if not c.pop("ok")]
     if bad:
         raise SystemExit(f"kernel check failed: {bad}")
-    return {n: dict(max_abs_err=max(c["max_abs_err"] for c in cs),
-                    **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "bound_counts", "library_ms", "device_ms")},
-                    checks=cs) for n, cs in checks.items()}
 
 
 def run_steps(tag, model, params, opt, n_steps, kernel_names, device):
@@ -1758,12 +1790,120 @@ def check_protocol_dir(run, seeds, n_blocks):
     return missing
 
 
-def phase_protocol(device, trainer_steps_per_s):
+@contextlib.contextmanager
+def seed_exec(mode):
+    """The seed executor ``DBW_SEED_EXEC`` set to ``mode`` inside the
+    block."""
+    old = os.environ.get("DBW_SEED_EXEC")
+    os.environ["DBW_SEED_EXEC"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DBW_SEED_EXEC")
+        else:
+            os.environ["DBW_SEED_EXEC"] = old
+
+
+def per_iteration(tr, loop_launches, n_iter):
+    """A protocol run's launches per iteration of its loop, its val
+    intervals' work left out."""
+    return {k: (loop_launches[k] - tr.val_counts.get(k, 0)) / n_iter for k in SOURCES}
+
+
+def protocol_step_probe(cfg, device, mode, n_steps=N_PROBE_STEPS):
+    """The protocol's step alone under the seed executor ``mode``:
+    PROTOCOL_SEEDS' slots through MultiSeedRunner on one rank, on the main
+    path's inputs (4 seeded images and the flagship cameras). After a
+    warm-up step, ``n_steps`` steps on the host clock (synchronized), the
+    launches of each, the peak memory, and the device's idle share over 3
+    more steps under torch.profiler."""
+    from dbw_torch import kernels
+    from dbw_torch.parallel.mesh import make_mesh
+    from dbw_torch.parallel.seeds import MultiSeedRunner, stacked_leaves
+    from dbw_torch.train.optimizer import create_optimizer
+    from dbw_torch.train.trainer import step_seed
+
+    model = make_model(cfg, device)
+    params = stacked_leaves([model.init_params(seed=s) for s in PROTOCOL_SEEDS])
+    runner = MultiSeedRunner(model, create_optimizer(cfg, params),
+                             make_mesh(1, 1, world_size=1))
+    imgs, R, T = mesh_inputs(device)
+    phase = model.phase_for_epoch(0, training=True)
+
+    def step(k):
+        gens = [torch.Generator(device=device).manual_seed(step_seed(s, k))
+                for s in PROTOCOL_SEEDS]
+        return runner.step(params, phase, imgs, R, T, gens)
+
+    with seed_exec(mode):
+        step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = []
+        t0 = time.perf_counter()
+        for k in range(1, n_steps + 1):
+            before = dict(kernels.LAUNCHES)
+            step(k)
+            per_step.append({n: kernels.LAUNCHES[n] - before[n] for n in STEP_KERNELS})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = device_breakdown(lambda: step(n_steps + 1)) or {}
+    out = dict(mode=mode, ms_per_step=ms, seed_steps_per_s=len(PROTOCOL_SEEDS) * 1e3 / ms,
+               per_step=per_step, peak_gib=peak, idle_share=prof.get("idle_share"),
+               device_busy_ms=prof.get("busy_ms"), device_shares=prof.get("shares"))
+    say("protocol", f"the step alone, {mode}: {len(PROTOCOL_SEEDS)} seeds in {ms:.2f} ms "
+        f"({out['seed_steps_per_s']:.3f} seed-steps/s), peak memory {peak:.2f} GiB; under "
+        f"torch.profiler (3 steps; not measured where None) device idle share "
+        f"{out['idle_share']}, device busy {out['device_busy_ms']} ms a step, shares of "
+        f"device time {out['device_shares']}; launches of each step {per_step[0]}")
+    del model, params, runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_batched_kernels(cfg, device):
+    """Each kernel of the protocol's step against its plain twin at the
+    batched step's shapes: PROTOCOL_SEEDS' 5 slots on 4 views, the blocks
+    pass and the env pass of 20 views in one launch (the plain twins timed
+    by one call). -> the checks."""
+    from dbw_torch.parallel.seeds import stack_params
+
+    model = make_model(cfg, device)
+    S = len(PROTOCOL_SEEDS)
+    params = stack_params([model.init_params(seed=s) for s in PROTOCOL_SEEDS])
+    phase = model.phase_for_epoch(0)
+    R, T = cameras(N_VIEWS, device)
+    R, T = R.repeat(S, 1, 1), T.repeat(S, 1)
+    gen = torch.Generator(device=device).manual_seed(2)
+    checks = {}
+    with torch.no_grad():
+        noise = torch.randn((S, model.n_blocks), generator=gen, device=device)
+        blocks, _ = model.build_blocks(params, phase, noise=noise)
+        check_soft_pass(checks, "protocol blocks pass", model, blocks, phase, R, T, gen,
+                        plain_runs=1)
+        check_env_pass(checks, model, params, phase, R, T, gen, path="protocol env pass",
+                       plain_runs=1)
+    del model, params, blocks
+    torch.cuda.empty_cache()
+    report_checks("protocol", checks)
+    return checks
+
+
+def phase_protocol(device, trainer_steps_per_s, step_launches):
     """The multi-seed protocol on the shipped config at full width with
-    PROTOCOL_SEEDS, only PROTOCOL_OVERRIDES changed: run A (counts set to 0
-    just before its run, read after its final evaluation), runs B and D
-    (the spread), run C killed after its save and resumed; then a 1-seed
-    protocol against the Trainer. Returns (launches, numbers)."""
+    PROTOCOL_SEEDS, only PROTOCOL_OVERRIDES changed, under the default
+    (batched) seed executor: run A (counts set to 0 just before its run,
+    read after its final evaluation), runs B and D (the spread), run C
+    killed after its save and resumed; run M under DBW_SEED_EXEC=map, the
+    comparison (counts set to 0 before its run). A's loop must launch each
+    kernel as often a iteration as the main path does a step
+    (``step_launches``), M's 5 times that, and M's final losses must lie
+    within the spread tolerance of A's. Then the step alone batched and
+    map (``protocol_step_probe``), each kernel against its plain twin at
+    the batched shapes, and a 1-seed protocol against the Trainer.
+    Returns (launches, numbers, the batched shapes' kernel checks)."""
     from dbw_torch import kernels
     from dbw_torch.train.trainer import Trainer
     from dbw_torch.utils.config import load_yaml
@@ -1786,7 +1926,7 @@ def phase_protocol(device, trainer_steps_per_s):
         n_val = len(read_losses(Path(tmp) / "a" / f"seed{PROTOCOL_SEEDS[0]}"
                                 / "val_metrics.tsv")["iteration"])
         per_val = {k: a.val_counts.get(k, 0) / max(n_val, 1) for k in SOURCES}
-        per_iter = {k: (loop_launches[k] - a.val_counts.get(k, 0)) / n_iter for k in SOURCES}
+        per_iter = per_iteration(a, loop_launches, n_iter)
         say("protocol", f"run A: {n_iter} iterations of {S} seeds in {wall_a:.2f} s: "
             f"{seed_steps:.3f} seed-steps/s over the loop (interval work included) "
             f"against phase 8's {trainer_steps_per_s:.3f} single-seed steps/s in this "
@@ -1822,6 +1962,34 @@ def phase_protocol(device, trainer_steps_per_s):
             "resume)")
         torch.cuda.empty_cache()
 
+        # run M: the map executor, the slots one after the other
+        with seed_exec("map"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m, loss_m, wall_m, launches_m = protocol_run(cfg, Path(tmp) / "m", device)
+            peak_m = torch.cuda.max_memory_allocated() / 2**30
+        per_iter_m = per_iteration(m, launches_m, n_iter)
+        seed_steps_m = S * n_iter / wall_m
+        gap_m = np.abs(loss_m - loss_a)
+        del m
+        torch.cuda.empty_cache()
+        want = {k: step_launches[k] for k in SOURCES}
+        batched_ok = per_iter == want
+        map_ok = per_iter_m == {k: S * v for k, v in want.items()}
+        say("protocol", f"run M (DBW_SEED_EXEC=map): {n_iter} iterations of {S} seeds in "
+            f"{wall_m:.2f} s: {seed_steps_m:.3f} seed-steps/s against the batched run A's "
+            f"{seed_steps:.3f} ({seed_steps / seed_steps_m:.3f}x) and phase 8's "
+            f"{trainer_steps_per_s:.3f} steps/s; peak memory {peak_m:.2f} GiB (A: "
+            f"{peak:.2f}); final losses {loss_m.tolist()}, |M - A| {gap_m.tolist()} "
+            f"(tolerance {tol.tolist()})")
+        say("protocol", f"launches per iteration: batched (A) {per_iter}, map (M) "
+            f"{per_iter_m}; the main path's per step {want}: A launches each kernel as "
+            f"often as one step {batched_ok}, M {S} times that {map_ok}")
+        cfg_step = load_yaml(CONFIG)
+        probe_b = protocol_step_probe(cfg_step, device, "vmap")
+        probe_m = protocol_step_probe(cfg_step, device, "map")
+        batched_checks = check_batched_kernels(cfg_step, device)
+
         slot_cfg = load_yaml(CONFIG)
         slot_cfg["training"].update(copy.deepcopy(SLOT_OVERRIDES))
         slot_cfg["training"]["seed"] = PROTOCOL_SEEDS[0]
@@ -1850,18 +2018,30 @@ def phase_protocol(device, trainer_steps_per_s):
             f"|d| / tolerance {(np.abs(la - lb) / slot_tol).max():.3f}; largest parameter "
             f"gap after {one.n_batches} steps {pgap:.3e}")
     not_launched = [k for k in SOURCES if not run_launches[k]]
+    probes_ok = all(st == {k: n * want[k] for k in STEP_KERNELS}
+                    for pr, n in ((probe_b, 1), (probe_m, S)) for st in pr["per_step"])
     ok = (np.isfinite(loss_a).all() and np.isfinite(loss_c).all()
           and np.isfinite(scores).all() and not missing and resumed_iters == len(tsv["iteration"])
           and (gap <= tol).all() and len(la) == len(lb) == N_SLOT_STEPS
-          and (np.abs(la - lb) <= slot_tol).all())
+          and (np.abs(la - lb) <= slot_tol).all() and np.isfinite(loss_m).all()
+          and (gap_m <= tol).all() and batched_ok and map_ok and probes_ok)
     if not ok or not_launched:
-        raise SystemExit(f"protocol phase failed (kernels not launched: {not_launched})")
+        raise SystemExit(f"protocol phase failed (kernels not launched: {not_launched}; "
+                         f"batched launches {batched_ok}, map launches {map_ok}, the step "
+                         f"alone {probes_ok})")
     numbers = dict(seed_steps_per_s=seed_steps, trainer_steps_per_s=trainer_steps_per_s,
                    loop_s=wall_a, eval_s=eval_s, peak_gib=peak, seeds=S,
                    iterations=n_iter, final_losses=loss_a.tolist(),
                    spread=spread.tolist(), resume_gap=gap.tolist(),
-                   slot_vs_trainer_max=float(np.abs(la - lb).max()))
-    return {"run": run_launches, "per_iteration": per_iter, "per_val_interval": per_val}, numbers
+                   slot_vs_trainer_max=float(np.abs(la - lb).max()),
+                   map=dict(seed_steps_per_s=seed_steps_m, loop_s=wall_m, peak_gib=peak_m,
+                            final_losses=loss_m.tolist(), gap_to_batched=gap_m.tolist(),
+                            launches_per_iteration=per_iter_m),
+                   step_alone={pr["mode"]: {k: v for k, v in pr.items() if k != "mode"}
+                               for pr in (probe_b, probe_m)})
+    launches = {"run": run_launches, "per_iteration": per_iter, "per_val_interval": per_val,
+                "map_per_iteration": per_iter_m}
+    return launches, numbers, batched_checks
 
 
 def mesh_inputs(device):
@@ -1905,10 +2085,12 @@ def collective_ms(mesh, params, band_shape):
     return out
 
 
-def device_idle_share(fn, n=N_PROFILE_STEPS):
-    """The device's idle share over n calls of fn() under torch.profiler:
-    1 - the union of its kernel and copy intervals over the span from the
-    first one's start to the last one's end (None: no device record)."""
+def device_breakdown(fn, n=N_PROFILE_STEPS):
+    """n calls of fn() under torch.profiler: the device's idle share (1 -
+    the union of its kernel and copy intervals over the span from the first
+    one's start to the last one's end), its busy ms a call, and each
+    KERNEL_FAMILIES family's share of the summed device time (None: no
+    device record)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1920,7 +2102,20 @@ def device_idle_share(fn, n=N_PROFILE_STEPS):
     if not dev:
         return None
     busy, span = device_busy(dev)
-    return 1.0 - busy / span
+    per_name = {}
+    for e in dev:
+        per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    total = sum(per_name.values())
+    shares = {fam: sum(t for k, t in per_name.items() if any(w in k for w in keys)) / total
+              for fam, keys in KERNEL_FAMILIES.items()}
+    return dict(idle_share=1.0 - busy / span, busy_ms=busy / 1e3 / n, shares=shares)
+
+
+def device_idle_share(fn, n=N_PROFILE_STEPS):
+    """The device's idle share over n calls of fn() (``device_breakdown``;
+    None: no device record)."""
+    out = device_breakdown(fn, n)
+    return None if out is None else out["idle_share"]
 
 
 @contextlib.contextmanager
@@ -2054,9 +2249,11 @@ def mesh_rank(rank, tmp, device, setup=None):
         pcfg["training"].update(copy.deepcopy(PROTOCOL_OVERRIDES))
         m, loss_m, wall_m, launches_m = protocol_run(pcfg, Path(tmp) / "m", device)
         _, loss_k, _, _ = protocol_run(pcfg, Path(tmp) / "k", device, kill_after_save=True)
+        n_iter = m.n_epoches * m.n_batches
         out["protocol"] = dict(losses_m=loss_m, losses_k=loss_k, wall_s=wall_m,
                                launches=launches_m, slots=len(m.seeds), n_valid=m.n_valid,
-                               mesh=dict(m.mesh.shape), iterations=m.n_epoches * m.n_batches)
+                               mesh=dict(m.mesh.shape), iterations=n_iter,
+                               per_iteration=per_iteration(m, launches_m, n_iter))
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
     finally:
         close_distributed()
@@ -2083,14 +2280,16 @@ def run_ranks(target, args, n, timeout):
     return [p.exitcode for p in procs]
 
 
-def phase_device_mesh(cfg, device, protocol_numbers, setup=None):
+def phase_device_mesh(cfg, device, protocol_numbers, step_launches, setup=None):
     """The device mesh on one card: MESH_RANKS ranks under gloo. Each
     MESH_LAYOUTS layout's losses and parameters against two one-card runs
     of the same steps (their spread sets the tolerance), every kernel
     launched in every step on every rank, each rank's K1 selections on its
     own rows only (``own_rows``); the 5-seed protocol's valid slots (runs M and K) against phase
-    11's run A within phase 11's tolerance. Returns (launches per layout
-    and rank, numbers)."""
+    11's run A within phase 11's tolerance, each rank's 3 slots batched: its
+    loop launches each kernel as often a iteration as the main path does a
+    step (``step_launches``). Returns (launches per layout and rank,
+    numbers)."""
     refs = [mesh_steps(cfg, device) for _ in range(2)]
     gap_l, gap_p, tol_l, tol_p = mesh_spread(refs)
     say("device mesh", f"one card, {MESH_STEPS} steps of seed {MESH_SEED} twice: "
@@ -2145,6 +2344,9 @@ def phase_device_mesh(cfg, device, protocol_numbers, setup=None):
     ok &= all((np.abs(np.asarray(q["losses_m"]) - loss_a) <= tol_a).all()
               and (np.abs(np.asarray(q["losses_k"]) - loss_a) <= tol_a).all() for q in prot)
     ok &= pm["mesh"] == {"seed": 2, "data": 1} and pm["slots"] == 6
+    want = {k: step_launches[k] for k in SOURCES}
+    batched = [q["per_iteration"] == want for q in prot]
+    ok &= all(batched)
     seed_steps = pm["n_valid"] * pm["iterations"] / pm["wall_s"]
     launches["protocol"] = [q["launches"] for q in prot]
     say("device mesh", f"protocol on {pm['mesh']}: {pm['n_valid']} seeds in {pm['slots']} slots, "
@@ -2152,21 +2354,26 @@ def phase_device_mesh(cfg, device, protocol_numbers, setup=None):
         f"seed-steps/s against phase 11's {protocol_numbers['seed_steps_per_s']:.3f}; "
         f"final losses M {pm['losses_m'].tolist()}, resumed K {pm['losses_k'].tolist()}; "
         f"largest gap to phase 11's run A, M {max(gaps_m):.3e}, K {max(gaps_k):.3e} "
-        f"(tolerance {tol_a.max():.3e})")
+        f"(tolerance {tol_a.max():.3e}); launches per iteration on each rank "
+        f"{[q['per_iteration'] for q in prot]}, one step's {batched}")
     numbers["protocol"] = dict(seed_steps_per_s=seed_steps, loop_s=pm["wall_s"],
                                slots=pm["slots"], seeds=pm["n_valid"],
                                final_losses=pm["losses_m"].tolist(),
                                resumed_losses=pm["losses_k"].tolist(),
-                               gap_m=max(gaps_m), gap_k=max(gaps_k))
+                               gap_m=max(gaps_m), gap_k=max(gaps_k),
+                               launches_per_iteration=[q["per_iteration"] for q in prot])
     if not ok:
         raise SystemExit("device mesh phase failed")
     return launches, numbers
 
 
-def phase_scenes(device):
+def phase_scenes(device, step_launches):
     """MultiSceneTrainer on two synthetic scenes of the shipped config at
-    full width, 1 seed each, 2 epochs, evaluate(quali=False). Returns its
-    numbers."""
+    full width, 1 seed each, 2 epochs, evaluate(quali=False); its loop runs
+    both scenes as one batched (scene, seed) step, so it must launch each
+    kernel as often a iteration as the main path does a step
+    (``step_launches``). Returns its numbers."""
+    from dbw_torch import kernels
     from dbw_torch.train.multi_scene import MultiSceneTrainer
     from dbw_torch.utils.config import load_yaml
 
@@ -2180,11 +2387,15 @@ def phase_scenes(device):
     with tempfile.TemporaryDirectory() as tmp:
         dirs = [Path(tmp) / f"scene{s}" for s in SCENE_DATASET_SEEDS]
         tr = MultiSceneTrainer(copy.deepcopy(cfgs), dirs, n_seeds=1, device=device)
+        tr.val_counts = {}
+        tr._val_and_log = launch_diff(tr._val_and_log, tr.val_counts)
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         _, _, losses = tr.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        loop_launches = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         tr.evaluate(quali=False)
         eval_s = time.perf_counter() - t0
@@ -2197,17 +2408,21 @@ def phase_scenes(device):
         logs = [read_losses(d / "train_metrics.tsv") for d in dirs]
         cols = [np.asarray(lg[f"loss_s{c['training']['seed']}"]) for lg, c in zip(logs, cfgs)]
         seed_steps = len(dirs) * n_iter / wall
+        per_iter = per_iteration(tr, loop_launches, n_iter)
+        one_step = per_iter == {k: step_launches[k] for k in SOURCES}
         say("scenes", f"{len(dirs)} scenes x 1 seed, {n_iter} iterations in {wall:.2f} s: "
             f"{seed_steps:.3f} seed-steps/s; final losses {losses.ravel().tolist()}; "
             f"logged losses {[c.tolist() for c in cols]}; evaluate(quali=False) "
-            f"{eval_s:.2f} s; n_seen {tr.n_seen.tolist()}; missing files {missing}")
+            f"{eval_s:.2f} s; n_seen {tr.n_seen.tolist()}; missing files {missing}; "
+            f"launches per iteration {per_iter}, one step's {one_step}")
     ok = (np.isfinite(losses).all() and all(np.isfinite(c).all() for c in cols)
           and not np.array_equal(cols[0], cols[1]) and losses[0, 0] != losses[1, 0]
-          and not missing)
+          and not missing and one_step)
     if not ok:
         raise SystemExit("scenes phase failed")
     return dict(seed_steps_per_s=seed_steps, loop_s=wall, eval_s=eval_s,
-                iterations=n_iter, final_losses=losses.ravel().tolist())
+                iterations=n_iter, final_losses=losses.ravel().tolist(),
+                launches_per_iteration=per_iter)
 
 
 def check_lit_pass(checks, path, rend, scene, R, T, gen, sigma=None):
@@ -2481,11 +2696,12 @@ def main():
     mesh_numbers = phase_mesh(mesh, device)
     say("mesh", f"phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    protocol, protocol_numbers = phase_protocol(device, numbers["steps_per_s"])
+    protocol, protocol_numbers, protocol_checks = phase_protocol(
+        device, numbers["steps_per_s"], per_step["blocks pass"])
     protocol_numbers["phase_s"] = time.perf_counter() - t0
     say("protocol", f"phase in {protocol_numbers['phase_s']:.1f} s")
     t0 = time.perf_counter()
-    scenes_numbers = phase_scenes(device)
+    scenes_numbers = phase_scenes(device, per_step["blocks pass"])
     scenes_numbers["phase_s"] = time.perf_counter() - t0
     say("scenes", f"phase in {scenes_numbers['phase_s']:.1f} s")
     lit, n_lit_steps, lit_checks, lit_numbers = phase_lit(cfg, device)
@@ -2493,16 +2709,18 @@ def main():
     ns, ns_numbers = phase_nerfstudio(device)
     say("nerfstudio", f"phase in {ns_numbers['phase_s']:.1f} s")
     t0 = time.perf_counter()
-    dm_launches, dm_numbers = phase_device_mesh(cfg, device, protocol_numbers)
+    dm_launches, dm_numbers = phase_device_mesh(cfg, device, protocol_numbers,
+                                                per_step["blocks pass"])
     dm_numbers["phase_s"] = time.perf_counter() - t0
     say("device mesh", f"phase in {dm_numbers['phase_s']:.1f} s")
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
-    for n, cs in lit_checks.items():
+    for n, cs in list(lit_checks.items()) + list(protocol_checks.items()):
         results[n]["checks"] += cs
         results[n]["max_abs_err"] = max(c["max_abs_err"] for c in results[n]["checks"])
     per_step["lit blocks pass"] = per_step["lit env pass"] = {
         n: lit[n] / n_lit_steps for n in SOURCES}
+    per_step["protocol blocks pass"] = per_step["protocol env pass"] = protocol["per_iteration"]
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
         n: 0.0 for n in SOURCES}
@@ -2519,7 +2737,9 @@ def main():
          "trainer_launches": trainer[n], "dtu_trainer_launches": dtu[n],
          "protocol_launches": protocol["run"][n],
          "protocol_launches_per_iteration": protocol["per_iteration"][n],
+         "protocol_map_launches_per_iteration": protocol["map_per_iteration"][n],
          "protocol_launches_per_val_interval": protocol["per_val_interval"][n],
+         "scenes_launches_per_iteration": scenes_numbers["launches_per_iteration"][n],
          "lit_launches": lit[n], "nerfstudio_trainer_launches": ns[n],
          "mesh_launches": {path: [c[n] for c in per_rank]
                            for path, per_rank in dm_launches.items()},

@@ -1,27 +1,36 @@
-"""Pixel losses and TV norms (PyTorch port of dbw_tpu/losses/basic.py)."""
+"""Pixel losses and TV norms (PyTorch port of dbw_tpu/losses/basic.py).
+
+Each pixel loss takes ``slots``: for a batch of slots * B views, slot-major
+(the batched seed step), it returns the (slots,) per-slot means."""
 
 import torch
 
 from ..ops.safe_math import safe_pow
 
 
-def mse_loss(a, b):
-    return torch.mean((a - b) ** 2)
+def _mean(x, slots=None):
+    """The mean of x, or with ``slots`` the (slots,) means of its slot-major
+    parts (each slot's views of a batch of slots * B)."""
+    return torch.mean(x) if slots is None else x.reshape(slots, -1).mean(1)
 
 
-def l1_loss(a, b):
-    return torch.mean(torch.abs(a - b))
+def mse_loss(a, b, slots=None):
+    return _mean((a - b) ** 2, slots)
 
 
-def huber_loss(a, b, delta=1.0):
+def l1_loss(a, b, slots=None):
+    return _mean(torch.abs(a - b), slots)
+
+
+def huber_loss(a, b, delta=1.0, slots=None):
     d = a - b
     ad = torch.abs(d)
-    return torch.mean(torch.where(ad < delta, 0.5 * d * d, delta * (ad - 0.5 * delta)))
+    return _mean(torch.where(ad < delta, 0.5 * d * d, delta * (ad - 0.5 * delta)), slots)
 
 
-def bce_with_logits_loss(logits, targets):
-    return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+def bce_with_logits_loss(logits, targets, slots=None):
+    return _mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * targets
+                 + torch.log1p(torch.exp(-torch.abs(logits))), slots)
 
 
 def mse2psnr(x):

@@ -47,5 +47,8 @@ class SSIM:
         self.window_size = window_size
         self.padding = padding
 
-    def __call__(self, img1, img2):
-        return ssim_loss(img1, img2, self.window_size, self.padding)
+    def __call__(self, img1, img2, slots=None):
+        """(B,) per image; with ``slots``, the (slots,) means of the
+        slot-major parts of a batch of slots * B views."""
+        d = ssim_loss(img1, img2, self.window_size, self.padding)
+        return d if slots is None else d.reshape(slots, -1).mean(1)

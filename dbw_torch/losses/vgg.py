@@ -138,6 +138,17 @@ def _const(a, like):
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
+def _tile(feats, n):
+    """Target features of the B views every slot shares, tiled to the n
+    views of the slots' renders (slot-major)."""
+    return [f if len(f) == n else f.repeat(n // len(f), 1, 1, 1) for f in feats]
+
+
+def _reduce(per_view, slots):
+    """The mean over the views, or the (slots,) means of each slot's."""
+    return per_view.mean() if slots is None else per_view.reshape(slots, -1).mean(1)
+
+
 class PerceptualLoss(torch.nn.Module):
     """VGG16 perceptual loss with channel-normalized features at relu3_3."""
 
@@ -152,13 +163,16 @@ class PerceptualLoss(torch.nn.Module):
         self.sum_channels = sum_channels
         self.vgg = vgg or VGG16Features.from_env_or_random(device=device, dtype=dtype)
 
-    def forward(self, imgs, rec):
+    def forward(self, imgs, rec, slots=None):
+        """The loss; with ``slots``, the (slots,) losses of the slot-major
+        parts of rec (slots * B views, in one VGG call), imgs per view or
+        the B views every slot shares."""
         if self.normalize_input:
             mean, std = _const(_IMAGENET_MEAN, rec), _const(_IMAGENET_STD, rec)
             imgs = (imgs - mean) / std
             rec = (rec - mean) / std
         with torch.no_grad():
-            feats1 = self.vgg(imgs, self.max_level)
+            feats1 = _tile(self.vgg(imgs, self.max_level), len(rec))
         feats2 = self.vgg(rec, self.max_level)
         losses = []
         for lvl, (f1, f2) in enumerate(zip(feats1, feats2), start=1):
@@ -171,7 +185,7 @@ class PerceptualLoss(torch.nn.Module):
                 losses.append(d.sum(1).reshape(d.shape[0], -1).mean(1))
             else:
                 losses.append(d.reshape(d.shape[0], -1).mean(1))
-        return sum(losses).mean()
+        return _reduce(sum(losses), slots)
 
 
 class LPIPSLoss(torch.nn.Module):
@@ -199,9 +213,11 @@ class LPIPSLoss(torch.nn.Module):
             return "LPIPS_uniform"
         return "LPIPS"
 
-    def forward(self, imgs, rec, normalize=True, reduce=True):
+    def forward(self, imgs, rec, normalize=True, reduce=True, slots=None):
         """LPIPS distance; ``reduce=False`` returns the per-view (B,)
-        vector."""
+        vector; ``slots``, the (slots,) distances of the slot-major parts of
+        rec (slots * B views, in one VGG call), imgs per view or the B views
+        every slot shares."""
         if normalize:
             imgs = imgs * 2.0 - 1.0
             rec = rec * 2.0 - 1.0
@@ -209,7 +225,7 @@ class LPIPSLoss(torch.nn.Module):
         imgs = (imgs - shift) / scale
         rec = (rec - shift) / scale
         with torch.no_grad():
-            feats1 = self.vgg(imgs, 5)
+            feats1 = _tile(self.vgg(imgs, 5), len(rec))
         feats2 = self.vgg(rec, 5)
         total = 0.0
         for i, (f1, f2) in enumerate(zip(feats1, feats2)):
@@ -220,4 +236,4 @@ class LPIPSLoss(torch.nn.Module):
             else:
                 d = d.mean(1)
             total = total + d.reshape(d.shape[0], -1).mean(1)
-        return total.mean() if reduce else total
+        return _reduce(total, slots) if reduce else total

@@ -8,7 +8,13 @@ dbw_tpu/models/dbw.py).
   atlases, world frame), the same arrays as the JAX package's,
 - ``Phase``: the curriculum state of an epoch as python scalars,
 - dead blocks are collapsed to zero-area geometry, never removed, so shapes
-  are static.
+  are static,
+- slots: every parameter may carry a leading slot axis (S, ...), the seed
+  slots of the batched protocol step (``parallel/seeds.py``); the scene
+  builders then return slot-batched scenes (``render/meshes.py``),
+  ``predict`` renders S * B views (slot s in views s * B .. s * B + B - 1,
+  R and T given per view) with one launch of each kernel, and the losses
+  are (S,) per slot. Slot s's values read only slot s's parameters.
 
 Ported: both rendering branches (``decouple_rendering: True``, the hard
 env pass of dome and ground composited under the soft blocks pass; and
@@ -217,6 +223,11 @@ class BlocksWorld:
             f32(R_world), f32(self.T_world), f32(colors),
         )
 
+    @staticmethod
+    def slot_shape(params):
+        """() for one set of parameters, (S,) for S stacked slots."""
+        return tuple(params["alpha_logit"].shape[:-1])
+
     @property
     def env_n_faces(self):
         """Faces of the background dome and the ground."""
@@ -363,19 +374,21 @@ class BlocksWorld:
     # -- texture maps -> atlas --------------------------------------------
 
     def _decimate(self, maps, decimate):
-        """avg-pool(f) then nearest upsample(f) under the phase flag."""
+        """avg-pool(f) then nearest upsample(f) under the phase flag, each
+        (h, w, c) map of (..., h, w, c) on its own."""
         if not decimate:
             return maps
         f = self.decim_factor
-        n, h, w, c = maps.shape
-        sub = maps.reshape(n, h // f, f, w // f, f, c).mean(dim=(2, 4))
-        return sub.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2)
+        *lead, h, w, c = maps.shape
+        sub = maps.reshape(*lead, h // f, f, w // f, f, c).mean(dim=(-4, -2))
+        return sub.repeat_interleave(f, dim=-3).repeat_interleave(f, dim=-2)
 
     def _place_in_atlas(self, maps, hw):
-        """Pad (n, h, w, 3) maps to the shared atlas size (top-left,
-        edge-replicated)."""
+        """Pad (..., h, w, 3) maps to the shared atlas size (top-left,
+        edge-replicated) -> (n, TH, TW, 3), the leading axes flattened."""
         TH, TW = self.atlas_hw
         h, w = hw
+        maps = maps.reshape(-1, h, w, maps.shape[-1])
         if (h, w) == (TH, TW):
             return maps
         x = Fn.pad(maps.permute(0, 3, 1, 2), (0, TW - w, 0, TH - h),
@@ -388,8 +401,8 @@ class BlocksWorld:
             raw = self.statics.block_colors[:, None, None, :].expand(raw.shape)
         maps = self._decimate(raw, phase.decimate)
         pl, pr = self.txt_padding
-        maps = torch.cat([maps[:, :, maps.shape[2] - pl:], maps, maps[:, :, :pr]],
-                         dim=2)
+        W = maps.shape[-2]
+        maps = torch.cat([maps[..., W - pl:, :], maps, maps[..., :pr, :]], dim=-2)
         return self._place_in_atlas(maps, self.block_map_hw), raw
 
     def _env_map(self, tex_logits, phase: Phase, synthetic=False):
@@ -404,33 +417,39 @@ class BlocksWorld:
     def _world_transform(self, verts):
         return (verts * self.S_world) @ self.statics.R_world + self.statics.T_world
 
-    def _env_scene(self, verts, faces, uvs, maps):
+    def _env_scene(self, verts, faces, uvs, maps, lead=()):
+        """One map a scene; ``lead`` (S,): slot s's verts, alpha and map s."""
         F = faces.shape[0]
+        dev = self.device
+        map_idx = torch.zeros(F, dtype=torch.int64, device=dev)
+        if lead:
+            map_idx = map_idx + torch.arange(lead[0], device=dev)[:, None]
         return MeshScene(
-            verts, faces, uvs, faces,
-            torch.zeros(F, dtype=torch.int64, device=self.device),
-            TextureAtlas(maps), torch.ones(F, device=self.device),
+            verts.expand(*lead, *verts.shape[-2:]), faces, uvs, faces, map_idx,
+            TextureAtlas(maps), torch.ones(*lead, F, device=dev),
         )
 
     def build_bkg(self, params, phase: Phase, synthetic=False):
         st = self.statics
         maps, raw = self._env_map(params["texture_bkg"], phase, synthetic)
         verts = self._world_transform(st.bkg_verts)
-        return self._env_scene(verts, st.bkg_faces, st.bkg_uvs, maps), raw
+        return self._env_scene(verts, st.bkg_faces, st.bkg_uvs, maps,
+                               self.slot_shape(params)), raw
 
     def build_ground(self, params, phase: Phase, synthetic=False, reduced=False):
         """The ground plane; ``reduced`` shrinks its extent from z_far to 3
         (the exported ``mesh.obj``)."""
         st = self.statics
-        Rg = rotation_6d_to_matrix(params["R_6d_ground"][0])
+        lead = self.slot_shape(params)
+        Rg = rotation_6d_to_matrix(params["R_6d_ground"][..., 0, :])
         verts = st.ground_verts
         if reduced:
             r = 3.0 / self.z_far
             verts = verts * torch.tensor([r, 1.0, r], device=self.device)
-        verts = verts @ Rg + params["T_ground"][0]
+        verts = verts @ Rg + params["T_ground"][..., 0, None, :]
         verts = self._world_transform(verts)
         maps, raw = self._env_map(params["texture_ground"], phase, synthetic)
-        return self._env_scene(verts, st.ground_faces, st.ground_uvs, maps), raw
+        return self._env_scene(verts, st.ground_faces, st.ground_uvs, maps, lead), raw
 
     def build_env(self, params, phase: Phase, synthetic=False):
         """Background dome + ground as one world-coordinate scene (the
@@ -441,10 +460,11 @@ class BlocksWorld:
 
     def block_sq_eps(self, params):
         e = torch.sigmoid(params["sq_eps"]) * 1.8 + 0.1
-        return e[:, 0:1], e[:, 1:2]
+        return e[..., 0:1], e[..., 1:2]
 
     def get_blocks_verts(self, params):
-        """(N, V, 3) superquadric-warped unit icosphere (before S/R/T)."""
+        """(N, V, 3) superquadric-warped unit icosphere (before S/R/T);
+        (S, N, V, 3) of S slots."""
         eps1, eps2 = self.block_sq_eps(params)
         st = self.statics
         return parametric_sq(st.sq_eta[None], st.sq_omega[None], eps1,
@@ -456,6 +476,7 @@ class BlocksWorld:
         ``synthetic``: each block's maps are its palette color."""
         st = self.statics
         N = self.n_blocks
+        lead = self.slot_shape(params)
         S = torch.exp(params["S"]) + self.scale_min
         R = rotation_6d_to_matrix(params["R_6d"])
         T = params["T"]
@@ -473,15 +494,15 @@ class BlocksWorld:
         mask_f = mask.to(torch.float32)
         alpha_full = alpha * mask_f
 
-        verts = (self.get_blocks_verts(params) * S[:, None]) @ R + T[:, None]
+        verts = (self.get_blocks_verts(params) * S[..., None, :]) @ R + T[..., None, :]
         verts = self._world_transform(verts)
-        verts = torch.where(mask[:, None, None], verts, torch.zeros_like(verts))
+        verts = torch.where(mask[..., None, None], verts, torch.zeros_like(verts))
 
         block_face_alpha = mask_f if phase.filter_transparent else alpha * mask_f
-        faces_alpha = block_face_alpha.repeat_interleave(self.BNF)
+        faces_alpha = block_face_alpha.repeat_interleave(self.BNF, dim=-1)
 
         maps, raw_maps = self._block_maps(params, phase, synthetic)
-        V = verts.shape[1]
+        V = verts.shape[-2]
         dev = self.device
         ar = torch.arange(N, device=dev)
         faces = (st.block_faces[None] + (ar * V)[:, None, None]).reshape(-1, 3)
@@ -489,7 +510,9 @@ class BlocksWorld:
         uv_faces = (st.block_uv_faces[None] + (ar * VT)[:, None, None]).reshape(-1, 3)
         uv_verts = st.block_uv_verts.repeat(N, 1)
         map_idx = ar.repeat_interleave(self.BNF)
-        scene = MeshScene(verts.reshape(-1, 3), faces, uv_verts, uv_faces,
+        if lead:  # slot s reads maps s * N .. s * N + N - 1 of the stacked atlas
+            map_idx = map_idx + (torch.arange(lead[0], device=dev) * N)[:, None]
+        scene = MeshScene(verts.reshape(*lead, -1, 3), faces, uv_verts, uv_faces,
                           map_idx, TextureAtlas(maps), faces_alpha)
         eps1, eps2 = self.block_sq_eps(params)
         aux = {"alpha": alpha, "alpha_full": alpha_full, "mask": mask,
@@ -530,7 +553,9 @@ class BlocksWorld:
         Decoupled: the hard env render shows wherever the soft blocks render
         leaves coverage (reference dbw.py:202-239). ``row_range=(row0, Hb)``
         renders the Hb-row pixel band from image row row0 only:
-        (B, Hb, W, 3), the full render's rows (JAX dbw.py:673-699)."""
+        (B, Hb, W, 3), the full render's rows (JAX dbw.py:673-699). S
+        stacked slots render S * B views, R and T given per view, slot s in
+        views s * B .. s * B + B - 1 -> (S * B, H, W, 3); ``noise`` (S, N)."""
         if self.decouple_rendering:
             env_out = self.env_pass(params, phase, R, T, row_range=row_range)
             return self.blocks_pass(params, phase, R, T, env_out, noise=noise,
@@ -594,52 +619,63 @@ class BlocksWorld:
     def compute_losses(self, imgs, rec, params, phase: Phase, aux,
                        overlap_u=None, generator=None):
         """Training objective; imgs/rec (B, H, W, 3). ``overlap_u``:
-        (N, 1000, 3) uniform [0, 1) draw for the overlap points."""
+        (N, 1000, 3) uniform [0, 1) draw for the overlap points. S stacked
+        slots: rec (S * B, H, W, 3) slot-major, imgs per view or the B views
+        every slot shares, ``overlap_u`` (S, N, 1000, 3); each term is then
+        (S,), slot s's value."""
         w = self.loss_weights
+        lead = self.slot_shape(params)
         coarse_f = 1.0 if phase.coarse else 0.0
         factor = 1.0 if phase.coarse else 0.1
+        # the mean of each slot's values
+        smean = (lambda x: x.mean()) if not lead else (lambda x: x.reshape(*lead, -1).mean(-1))
         losses = {}
         if "rgb" in w:
-            losses["rgb"] = w["rgb"] * torch.mean(self.criterion(imgs, rec))
+            if lead:
+                views = imgs if len(imgs) == len(rec) else imgs.repeat(lead[0], 1, 1, 1)
+                losses["rgb"] = w["rgb"] * self.criterion(views, rec, slots=lead[0])
+            else:
+                losses["rgb"] = w["rgb"] * torch.mean(self.criterion(imgs, rec))
         if "perceptual" in w:
             losses["perceptual"] = (w["perceptual"] * factor
-                                    * self.perceptual_loss(imgs, rec))
+                                    * self.perceptual_loss(imgs, rec, slots=(lead or (None,))[0]))
         alpha_sel = (aux["alpha_full"] if phase.coarse
                      else (aux["alpha_full"] > 0.5).to(torch.float32))
         if "parsimony" in w:
             losses["parsimony"] = (w["parsimony"] * coarse_f
-                                   * safe_pow(alpha_sel, 0.5).mean())
+                                   * smean(safe_pow(alpha_sel, 0.5)))
         if "tv" in w:
             tv = self.tv_norm
             bkg_m = aux["env_raw_maps"]["bkg"]
             ground_m = aux["env_raw_maps"]["ground"]
-            tv_loss = (tv(torch.diff(bkg_m, dim=1)).mean()
-                       + tv(torch.diff(bkg_m, dim=2)).mean())
+            tv_loss = (smean(tv(torch.diff(bkg_m, dim=-3)))
+                       + smean(tv(torch.diff(bkg_m, dim=-2))))
             # all blocks' raw maps, seam-continuous along u (reference
             # dbw.py:381-385)
             bm = aux["raw_maps"]
-            dx = tv(torch.diff(bm, dim=2, append=bm[:, :, 0:1]))
-            dy = tv(torch.diff(bm, dim=1))
-            tv_loss = tv_loss + dx.sum(0).mean() + dy.sum(0).mean()
+            dx = tv(torch.diff(bm, dim=-2, append=bm[..., 0:1, :]))
+            dy = tv(torch.diff(bm, dim=-3))
+            tv_loss = tv_loss + smean(dx.sum(-3)) + smean(dy.sum(-3))
             # ground TV is factor-scaled inside and outside (reference
             # dbw.py:386-387)
-            tv_loss = tv_loss + (tv(torch.diff(ground_m, dim=1)).mean()
-                                 + tv(torch.diff(ground_m, dim=2)).mean()) * factor
+            tv_loss = tv_loss + (smean(tv(torch.diff(ground_m, dim=-3)))
+                                 + smean(tv(torch.diff(ground_m, dim=-2)))) * factor
             losses["tv"] = w["tv"] * factor * tv_loss
         if "overlap" in w:
             S, R, T = aux["S"], aux["R"], aux["T"]
             N = self.n_blocks
             if overlap_u is None:
-                overlap_u = torch.rand((N, OVERLAP_N_POINTS, 3),
+                overlap_u = torch.rand(lead + (N, OVERLAP_N_POINTS, 3),
                                        generator=generator, device=self.device)
             pts = overlap_u * 2.0 - 1.0
-            pts = (pts * self.ratio_block_scene * S[:, None]) @ R + T[:, None]
-            pts = pts.reshape(-1, 3).detach()[None].expand(N, -1, -1)
-            inv = ((pts - T[:, None]) @ R.transpose(1, 2)) / (
-                S[:, None] * self.ratio_block_scene)
+            pts = (pts * self.ratio_block_scene * S[..., None, :]) @ R + T[..., None, :]
+            # every block's points against every block of the same slot
+            pts = pts.reshape(*lead, 1, -1, 3).detach().expand(*lead, N, -1, -1)
+            inv = ((pts - T[..., None, :]) @ R.transpose(-1, -2)) / (
+                S[..., None, :] * self.ratio_block_scene)
             sdf = implicit_sq(inv, aux["eps1"], aux["eps2"], as_sdf=2)
-            occ = torch.sigmoid(-sdf / OVERLAP_TEMPERATURE) * alpha_sel[:, None]
-            overlap = torch.clamp(occ.sum(0) - OVERLAP_N_BLOCKS, min=0.0).mean()
+            occ = torch.sigmoid(-sdf / OVERLAP_TEMPERATURE) * alpha_sel[..., None]
+            overlap = smean(torch.clamp(occ.sum(-2) - OVERLAP_N_BLOCKS, min=0.0))
             losses["overlap"] = w["overlap"] * coarse_f * overlap
         losses["total"] = sum(losses.values())
         return losses
@@ -649,6 +685,8 @@ class BlocksWorld:
                 rec_gather=None):
         """predict + losses. The two random draws (opacity noise (N,),
         overlap points (N, 1000, 3)) come from ``generator`` unless given.
+        S stacked slots: the draws (S, N) and (S, N, 1000, 3), R and T per
+        view (S * B, ...), the losses (S,) (``compute_losses``).
 
         Pixel-band hooks (JAX dbw.py:818-833): with ``row_range`` the render
         covers one row band; ``rec_gather`` maps that band's (B, Hb, W, 3)
@@ -656,8 +694,8 @@ class BlocksWorld:
         losses need (across cards an all-gather over the bands and a crop),
         and the gradients flow back through it into the band's render."""
         if opacity_noise is None:
-            opacity_noise = torch.randn((self.n_blocks,), generator=generator,
-                                        device=self.device)
+            opacity_noise = torch.randn(self.slot_shape(params) + (self.n_blocks,),
+                                        generator=generator, device=self.device)
         rec, aux = self.predict(params, phase, R, T, noise=opacity_noise,
                                 row_range=row_range)
         if rec_gather is not None:

@@ -4,6 +4,13 @@ renderers are swapped in for the scene and restored after (JAX
 ``scenes.py:84-98`` re-invokes ``set_camera`` inside the traced scene
 function); here each scene's set is built once by ``set_camera`` and kept.
 
+On one device ``scene_backward`` is the JAX trainer's single-device
+program, a nested ``seed_axis_exec`` over (scene, seed): batched (``vmap``,
+the default) it runs every scene's every seed as one step of n_scene * S
+slots, each slot's views rendered with its scene's intrinsics, given per
+view (``cameras.view_camera``); under ``map`` the scenes run one after
+the other with the camera swap, and each scene's seeds by the executor.
+
 Across ranks, ``make_scene_mesh`` lays the ranks out as JAX's ("scene",
 "seed", "data") mesh, and ``MultiSceneRunner`` is its sharded step: each
 rank trains its scene's seed slots on its view shard with the scene's
@@ -13,8 +20,13 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 
+import torch
+
+from ..render.cameras import view_camera
+from ..render.renderer import Renderer
 from .mesh import _mesh, factor_devices, world
-from .seeds import mean_and_step, seed_backward, slot, stack_params
+from .seeds import (batched_backward, mean_and_step, n_slots, seed_backward, seed_exec_mode,
+                    slot, stack_draws, stack_params)
 
 CAMERA_ATTRS = ("camera", "renderer", "renderer_env", "renderer_viz",
                 "renderer_light")
@@ -42,6 +54,48 @@ def use_camera(model, state):
     finally:
         for a, v in saved.items():
             setattr(model, a, v)
+
+
+def views_state(model, cameras, n_views):
+    """The renderers of a batched step whose views take their scene's
+    intrinsics: ``cameras[i]`` (a ``camera_state``) for the next
+    ``n_views[i]`` views; the scenes' own camera where they all share one
+    (a fov camera ignores the dataset's K)."""
+    cams = [c["camera"] for c in cameras]
+    cam = cams[0] if all(c == cams[0] for c in cams) else view_camera(
+        cams, n_views, model.device)
+    return {a: Renderer(getattr(model, a).config, cam) for a in ("renderer", "renderer_env")}
+
+
+def scene_backward(model, params, phase, views, cameras, generators=None, draws=None):
+    """Every (scene, seed) slot's forward and backward on one device (the
+    JAX trainer's nested ``seed_axis_exec``): ``params`` (n_scene, S, ...)
+    stacked leaves, ``views[i]`` scene i's (imgs, R, T), ``cameras[i]`` its
+    ``camera_state``, ``generators[i]`` its seeds' generators (or
+    ``draws[i]`` their draws, as ``seed_backward`` takes them). Batched,
+    slot (i, j) is slot i * S + j of one step, on views of scene i. Returns
+    the (n_scene, S) totals."""
+    n = n_slots(params)
+    S = n_slots(slot(params, 0))
+    generators = generators or [[None] * S] * n
+    draws = draws or [[None] * S] * n
+    mode = seed_exec_mode()
+    if mode == "map" or (mode != "vmap" and n == 1):
+        rows = []
+        for i in range(n):
+            with use_camera(model, cameras[i]):
+                rows.append(seed_backward(model, slot(params, i), phase, *views[i],
+                                          generators[i], draws[i]))
+        return torch.stack(rows)
+    flat = {k: v.reshape(n * S, *v.shape[2:]) for k, v in params.items()}
+    imgs, R, T = (torch.cat([v[c].repeat(S, *[1] * (v[c].ndim - 1)) for v in views])
+                  for c in range(3))
+    state = views_state(model, cameras, [S * len(v[1]) for v in views])
+    flat_draws = stack_draws(model, [g for gs in generators for g in gs],
+                             [d for ds in draws for d in ds])
+    with use_camera(model, state):
+        totals = batched_backward(model, flat, phase, imgs, R, T, flat_draws)
+    return totals.reshape(n, S)
 
 
 def stack_scene_params(per_scene_params_lists):
@@ -78,9 +132,9 @@ class MultiSceneRunner:
     """One rank's step of the (scene, seed, data) sharded trainer (JAX
     ``MultiSceneRunner.step``): ``params`` are this rank's slots of its
     scene, stacked leaves (1, S_local, ...) under ``optimizer``, trained on
-    its view shard with the scene's ``camera`` (a ``camera_state``);
-    gradients and losses averaged over the data axis, then Adam steps
-    locally."""
+    its view shard with the scene's ``camera`` (a ``camera_state``), its
+    seeds through ``seed_axis_exec`` (batched by default); gradients and
+    losses averaged over the data axis, then Adam steps locally."""
 
     def __init__(self, model, optimizer, mesh, camera):
         if tuple(mesh.axis_names) != ("scene", "seed", "data"):

@@ -1,8 +1,24 @@
-"""The seed axis (PyTorch port of dbw_tpu/parallel/seeds.py in its ``map``
-mode): S optimizations of one model config keep every parameter as one
-stacked leaf (S, ...), and each step runs the slots one after the other,
-slot s seeing ``{k: v[s]}``. One torch Adam over the stacked leaves is S
-Adams: its update is elementwise and the slots share its step count.
+"""The seed axis (PyTorch port of dbw_tpu/parallel/seeds.py): S
+optimizations of one model config keep every parameter as one stacked leaf
+(S, ...) under one torch Adam, which is S Adams: its update is elementwise
+and the slots share its step count.
+
+``seed_axis_exec`` runs a step's slots as the JAX package's executor does,
+by ``DBW_SEED_EXEC``:
+- ``vmap``: one batched call on the stacked values. The model takes the
+  leading slot axis itself (``models/dbw.py``): one forward renders the S
+  slots' S * B views with one launch of each kernel and gives the (S,)
+  losses; one ``backward()`` of their sum gives each slot exactly its own
+  gradient, since slot s's loss reads only slot s's leaves;
+- ``map``: the slots one after the other, slot s seeing ``{k: v[s]}``
+  (the sequential executor the batched one is held against);
+- ``auto`` (the default): JAX's rule, a direct call for one local slot,
+  ``map`` where a compact pipeline is live, ``vmap`` otherwise. The port
+  has no compact pipeline, so ``auto`` is ``vmap`` on the card and on the
+  CPU. (JAX's guard against ``vmap`` with its Pallas texel kernel is for
+  a Mosaic lowering limit the card does not have.)
+Each slot's random draws (opacity noise (N,), overlap points (N, 1000, 3))
+come from its own generator in either mode, so both see the same draws.
 
 Across ranks, ``MultiSeedRunner`` is JAX's (seed, data[, sp]) sharded step
 on a ``mesh.Mesh``: each rank holds its seed column's slots, renders its
@@ -11,13 +27,17 @@ gathered by ``band_gather``), averages the gradients and losses over its
 column, and steps its own Adam.
 
 Left out: the scanned multi-step and the device-resident dataset (TPU
-machinery), and the ``DBW_SEED_EXEC`` knob with its vmap guard."""
+machinery)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..models.dbw import OVERLAP_N_POINTS
 
 
 def slot(x, s):
@@ -34,11 +54,41 @@ def n_slots(x):
     return len(x)
 
 
+def seed_exec_mode():
+    """``DBW_SEED_EXEC``: ``vmap``, ``map`` or ``auto`` (the default)."""
+    return os.environ.get("DBW_SEED_EXEC", "auto").lower()
+
+
+def _stacked(outs):
+    """Per-slot results stacked leaf by leaf (tensors, and dicts and tuples
+    of them); anything else listed."""
+    o = outs[0]
+    if torch.is_tensor(o):
+        return torch.stack(outs)
+    if isinstance(o, dict):
+        return {k: _stacked([x[k] for x in outs]) for k in o}
+    if isinstance(o, tuple):
+        return tuple(_stacked(list(x)) for x in zip(*outs))
+    return outs
+
+
 def seed_axis_exec(fn, *xs):
-    """``fn`` over the leading (seed) axis of ``xs``, one slot after the
-    other; the per-slot results stacked (tensors) or listed."""
-    outs = [fn(*(slot(x, s) for x in xs)) for s in range(n_slots(xs[0]))]
-    return torch.stack(outs) if torch.is_tensor(outs[0]) else outs
+    """``fn`` over the leading (seed) axis of ``xs`` (dicts of stacked
+    tensors, tensors or per-slot lists), by ``seed_exec_mode()``: ``map``
+    calls it on each slot and stacks the results (``_stacked``);
+    ``vmap`` calls it once on the stacked ``xs`` (``fn`` takes the leading
+    slot axis itself: the model's functions do); ``auto`` calls it on the
+    slot of a one-slot axis and keeps the leading axis, else is ``vmap``
+    (the port has no compact pipeline, JAX's reason for ``map``)."""
+    n = n_slots(xs[0])
+    mode = seed_exec_mode()
+    if mode not in ("vmap", "map"):  # auto
+        if n == 1:
+            return _stacked([fn(*(slot(x, 0) for x in xs))])
+        mode = "vmap"
+    if mode == "map":
+        return _stacked([fn(*(slot(x, s) for x in xs)) for s in range(n)])
+    return fn(*xs)
 
 
 def stack_params(params_list):
@@ -79,6 +129,39 @@ def select_best_seed(stacked_params, losses, n_valid=None):
     return unstack_params(stacked_params, best), best
 
 
+def slot_draws(model, generator, draws=None):
+    """One slot's random draws as its forward makes them, in its order:
+    the opacity noise (N,), then, with an overlap loss, the overlap points
+    (N, 1000, 3), from ``generator``; those in ``draws`` are taken as
+    given."""
+    out = dict(draws or {})
+    N, dev = model.n_blocks, model.device
+    if out.get("opacity_noise") is None:
+        out["opacity_noise"] = torch.randn((N,), generator=generator, device=dev)
+    if "overlap" in model.loss_weights and out.get("overlap_u") is None:
+        out["overlap_u"] = torch.rand((N, OVERLAP_N_POINTS, 3), generator=generator,
+                                      device=dev)
+    return out
+
+
+def stack_draws(model, generators, draws):
+    """Every slot's ``slot_draws``, stacked: {name: (S, ...)}."""
+    per = [slot_draws(model, g, d) for g, d in zip(generators, draws)]
+    return {k: torch.stack([d[k] for d in per]) for k in per[0]}
+
+
+def batched_backward(model, params, phase, imgs, R, T, draws, band=None):
+    """The batched step's forward and backward: S stacked slots, R (S * B,
+    3, 3) and T (S * B, 3) per view (slot s in views s * B .. s * B + B -
+    1), imgs per view or the B views every slot shares, ``draws`` stacked
+    (``stack_draws``). One forward, one ``backward()`` of the (S,) totals'
+    sum: each slot's gradient lands in its slot of the stacked leaves.
+    Returns the detached (S,) totals."""
+    losses = model.forward(params, phase, imgs, R, T, **draws, **(band or {}))
+    losses["total"].sum().backward()
+    return losses["total"].detach()
+
+
 def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None,
                   band=None):
     """One slot's forward and backward: its gradients accumulate into the
@@ -86,7 +169,14 @@ def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None,
     draws (``opacity_noise``, ``overlap_u``) when given, else they come
     from ``generator``. ``band``: the forward's ``row_range`` and
     ``rec_gather`` on the pixel-band axis. Returns the slot's detached
-    total loss."""
+    total loss. Stacked ``params`` (S, ...) with per-slot lists of
+    generators and draws run the S slots batched on the same views
+    (``batched_backward``) and return the (S,) totals."""
+    lead = model.slot_shape(params)
+    if lead:
+        S = lead[0]
+        return batched_backward(model, params, phase, imgs, R.repeat(S, 1, 1),
+                                T.repeat(S, 1), stack_draws(model, generator, draws), band)
     losses = model.forward(params, phase, imgs, R, T, generator=generator,
                            **(draws or {}), **(band or {}))
     losses["total"].backward()
@@ -106,9 +196,10 @@ def adam_step(optimizer, params):
 
 def seed_backward(model, params, phase, imgs, R, T, generators=None, draws=None,
                   band=None):
-    """Every seed slot's forward and backward on the same views, one after
-    the other; the gradients accumulate into the stacked leaves. Returns the
-    (S,) total losses, on the device."""
+    """Every seed slot's forward and backward on the same views, through
+    ``seed_axis_exec`` (batched, or one slot after the other); the
+    gradients accumulate into the stacked leaves. Returns the (S,) total
+    losses, on the device."""
     S = n_slots(params)
     return seed_axis_exec(
         lambda p, g, d: slot_backward(model, p, phase, imgs, R, T, g, d, band),

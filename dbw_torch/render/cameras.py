@@ -16,7 +16,11 @@ import torch
 
 
 class Camera(NamedTuple):
-    """Pinhole intrinsics in NDC units, shared across views (python floats)."""
+    """Pinhole intrinsics in NDC units: python floats shared across views
+    (the default), or (B, 1) float32 tensors, one row per view, that
+    broadcast against the views' (B, V) coordinates (``view_camera``: the
+    batched (scene, seed) program, where each scene has its own
+    intrinsics)."""
 
     fx: float
     fy: float
@@ -31,8 +35,20 @@ class Camera(NamedTuple):
         return Camera(f32(K[0][0]), f32(K[1][1]), f32(K[0][2]), f32(K[1][2]))
 
 
+def view_camera(cams, n_views, device=None):
+    """One Camera of (sum(n_views), 1) float32 tensors: ``cams[i]`` for
+    each of the next ``n_views[i]`` views."""
+    col = lambda f: torch.tensor(np.repeat([getattr(c, f) for c in cams], n_views),
+                                 dtype=torch.float32, device=device)[:, None]
+    return Camera(*(col(f) for f in Camera._fields))
+
+
 def world_to_view(verts, R, T):
-    """(..., V, 3) @ (..., 3, 3) + (..., 1, 3) -> view-space points."""
+    """(..., V, 3) @ (..., 3, 3) + (..., 1, 3) -> view-space points. Slots:
+    verts (S, V, 3) seen by S * B views R (S * B, 3, 3), T (S * B, 3), slot
+    s by views s * B .. s * B + B - 1 -> (S * B, V, 3)."""
+    if verts.ndim == 3:
+        verts = verts.repeat_interleave(R.shape[0] // verts.shape[0], dim=0)
     return verts @ R + T[..., None, :]
 
 

@@ -4,6 +4,13 @@ and ``face_normals``).
 
 A scene is a fixed set of flat tensors; dead blocks are collapsed in place,
 never removed, so shapes never change during optimization.
+
+A slot-batched scene holds S scenes of one topology (the seed slots of the
+batched protocol step): verts (S, V, 3), per-face ``map_idx`` and
+``faces_alpha`` (S, F), the faces and uv shared, and one atlas stacked over
+the slots, ``map_idx`` indexing it (slot s's maps offset by s * M). Its S * B
+views render in one batch, slot s in views s * B .. s * B + B - 1, so each
+kernel launches once for every slot.
 """
 
 from __future__ import annotations
@@ -24,17 +31,32 @@ class TextureAtlas(NamedTuple):
 
 
 class MeshScene(NamedTuple):
-    verts: torch.Tensor        # (V, 3) f32, world space
+    verts: torch.Tensor        # (V, 3) f32, world space; slots: (S, V, 3)
     faces: torch.Tensor        # (F, 3) int64
     uv_verts: torch.Tensor     # (VT, 2) f32
     uv_faces: torch.Tensor     # (F, 3) int64 into uv_verts
-    map_idx: torch.Tensor      # (F,) int64 into atlas maps
+    map_idx: torch.Tensor      # (F,) int64 into atlas maps; slots: (S, F)
     atlas: TextureAtlas
-    faces_alpha: torch.Tensor  # (F,) f32 per-face opacity
+    faces_alpha: torch.Tensor  # (F,) f32 per-face opacity; slots: (S, F)
+
+
+def n_slots(scene: MeshScene):
+    """S of a slot-batched scene, None for a single scene."""
+    return scene.verts.shape[0] if scene.verts.ndim == 3 else None
+
+
+def per_view(x, n_views):
+    """A per-face column (F,) repeated for ``n_views`` views, or a slot's
+    row of (S, F) for each of its n_views / S views -> (n_views * F,)."""
+    if x.ndim == 1:
+        return x.repeat(n_views)
+    return x.repeat_interleave(n_views // x.shape[0], dim=0).reshape(-1)
 
 
 def concat_scenes(scenes: Sequence[MeshScene]) -> MeshScene:
-    """Join sub-meshes into one scene; atlases must share their map size."""
+    """Join sub-meshes into one scene; atlases must share their map size.
+    Slot-batched parts join slot by slot (their atlases one after the
+    other, each ``map_idx`` offset past the atlases before it)."""
     v_off = vt_off = m_off = 0
     parts = {k: [] for k in MeshScene._fields}
     for s in scenes:
@@ -45,17 +67,20 @@ def concat_scenes(scenes: Sequence[MeshScene]) -> MeshScene:
         parts["map_idx"].append(s.map_idx + m_off)
         parts["atlas"].append(s.atlas.maps)
         parts["faces_alpha"].append(s.faces_alpha)
-        v_off += s.verts.shape[0]
+        v_off += s.verts.shape[-2]
         vt_off += s.uv_verts.shape[0]
         m_off += s.atlas.maps.shape[0]
-    cat = {k: torch.cat(v, 0) for k, v in parts.items()}
+    per_slot = ("verts", "map_idx", "faces_alpha")
+    cat = {k: torch.cat(v, -2 if k == "verts" else -1) if k in per_slot else torch.cat(v, 0)
+           for k, v in parts.items()}
     cat["atlas"] = TextureAtlas(cat["atlas"])
     return MeshScene(**cat)
 
 
 def face_normals(verts, faces):
-    """Per-face unit normals (F, 3) (flat shading)."""
-    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    """Per-face unit normals (F, 3) (flat shading); (S, F, 3) of slot-batched
+    verts (S, V, 3)."""
+    v0, v1, v2 = (verts[..., faces[:, k], :] for k in range(3))
     n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
 

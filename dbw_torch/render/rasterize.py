@@ -63,7 +63,9 @@ def _cross2(a, b):
 
 def project_faces(verts, faces, R, T, cam: Camera, z_clip=1e-3) -> FaceGeom:
     """World-space mesh (V, 3) -> per-face NDC geometry for B views
-    (R (B, 3, 3), T (B, 3))."""
+    (R (B, 3, 3), T (B, 3)). A slot-batched mesh's verts (S, V, 3) go to
+    its S * B views, slot s to views s * B .. s * B + B - 1
+    (``world_to_view``): the views of every slot in one (S * B, F) batch."""
     v_view = world_to_view(verts, R, T)                  # (B, V, 3)
     z_raw = v_view[..., 2]
     z_cl = torch.clamp(z_raw, min=z_clip)
@@ -147,11 +149,19 @@ def band_rows(cfg: RasterConfig, row_range=None):
     return row0, Hb
 
 
+# how far (NDC) past a face's blur-inflated bbox a chunk of pixel rows must
+# lie for the plain K1 to skip the face: far above the rounding of its
+# inside test, so that the skip changes no selection
+CULL_MARGIN = 1e-4
+
+
 def rasterize_plain(packed, blur, cfg: RasterConfig, row_range=None):
     """Plain PyTorch K1: packed (B, F, 16) -> pix_to_face (B, Hb, W, K)
-    int32, ascending (z, face index), -1 = empty. Brute force over all faces
-    per chunk of pixel rows, with a stable sort so ties go to the lower
-    index."""
+    int32, ascending (z, face index), -1 = empty. Per chunk of pixel rows,
+    every valid face whose bbox, inflated by the blur radius and
+    CULL_MARGIN, reaches the chunk's rows (the others cannot cover its
+    pixels) is scored against every pixel; a stable sort over them in face
+    order gives ties to the lower index."""
     B, F, _ = packed.shape
     W = cfg.image_size[1]
     row0, Hb = band_rows(cfg, row_range)
@@ -160,20 +170,26 @@ def rasterize_plain(packed, blur, cfg: RasterConfig, row_range=None):
     px_row, py_col = ndc_pixel_centers(cfg.image_size, dev, row_range=(row0, Hb))
     out = torch.full((B, Hb, W, K), -1, dtype=torch.int32, device=dev)
     blur = float(blur)
+    reach = max(blur, 0.0) ** 0.5 + CULL_MARGIN
     for b in range(B):
-        fa = packed[b][None]                              # (1, F, 16)
         for r0 in range(0, Hb, cfg.row_chunk):
             n = min(cfg.row_chunk, Hb - r0)
-            py = py_col[r0:r0 + n, None].expand(-1, W)
+            ys = py_col[r0:r0 + n]
+            f = packed[b]
+            skip = ((f[:, 12] - reach > ys.max()) | (f[:, 13] + reach < ys.min())
+                    | (f[:, 9] <= 0.5))
+            keep = torch.nonzero(~skip).squeeze(1)        # ascending face ids
+            py = ys[:, None].expand(-1, W)
             px = px_row[None].expand(n, -1)
-            key = _score(px.reshape(-1, 1), py.reshape(-1, 1), fa, blur,
+            key = _score(px.reshape(-1, 1), py.reshape(-1, 1), f[keep][None], blur,
                          cfg.z_clip, cfg.perspective_correct,
-                         cfg.clip_barycentric)            # (P, F)
-            if F < K:
-                key = torch.cat([key, torch.full((key.shape[0], K - F), BIG,
+                         cfg.clip_barycentric)            # (P, F kept)
+            if len(keep) < K:
+                key = torch.cat([key, torch.full((key.shape[0], K - len(keep)), BIG,
                                                  device=dev)], dim=1)
+                keep = torch.cat([keep, keep.new_zeros(K - len(keep))])
             val, idx = torch.sort(key, dim=1, stable=True)
-            sel = torch.where(val[:, :K] < BIG, idx[:, :K], -1)
+            sel = torch.where(val[:, :K] < BIG, keep[idx[:, :K]], -1)
             out[b, r0:r0 + n] = sel.reshape(n, W, K).to(torch.int32)
     return out
 

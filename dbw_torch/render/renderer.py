@@ -51,8 +51,8 @@ from .fragment import (FragFlags, alpha_math, bary_uv, fused_fragment_shade,
                        residual, texel_coords)
 from .interpolate import (edge_dists_flat, fragment_alpha_flat, gather_rows,
                           interp_corner_table, interpolate_fragments_flat)
-from .meshes import (MeshScene, face_normals, sample_atlas_bilinear, sample_quad,
-                     sample_quad_diff)
+from .meshes import (MeshScene, face_normals, n_slots, per_view, sample_atlas_bilinear,
+                     sample_quad, sample_quad_diff)
 from .rasterize import RasterConfig, project_faces, rasterize
 from .shading import _light, vertex_normals
 
@@ -174,10 +174,10 @@ class Renderer:
     def shade_lit(self, scene: MeshScene, geom, p2f, R, sigma):
         """flat / gouraud / phong shading of the selected faces p2f (B, H, W,
         K) of the (supersampled) image, views R (B, 3, 3) -> RGBA (B, H, W,
-        4). With the default ambient light (1, 1, 1) every type leaves the
-        texels unchanged. Only the valid fragments are shaded: an empty slot
-        has alpha 0 and takes no gradient, as in the JAX package's dense
-        stream."""
+        4); B = S * B' views of a slot-batched scene. With the default
+        ambient light (1, 1, 1) every type leaves the texels unchanged. Only
+        the valid fragments are shaded: an empty slot has alpha 0 and takes
+        no gradient, as in the JAX package's dense stream."""
         cfg = self.config
         B, H, W, K = p2f.shape
         F = scene.faces.shape[0]
@@ -185,32 +185,40 @@ class Renderer:
         ff = interpolate_fragments_flat(p2f, geom, cfg.raster_config(),
                                         detach_bary=cfg.detach_bary, select=sel)
         uv = interp_corner_table(ff, scene.uv_verts[scene.uv_faces].reshape(F, 6))
+        # per-slot tables (a single scene is one slot), slot-major (S * F,
+        # ...): view b belongs to slot b * S // B
+        one = n_slots(scene) is None
+        verts, map_idx, faces_alpha = (t[None] if one else t for t in (
+            scene.verts, scene.map_idx, scene.faces_alpha))
+        S, faces = verts.shape[0], scene.faces
+        srows = ff.idx + (ff.view * S // B) * F
         # the compacted stream has no (pixel, slot) layout: K4 takes K = 1
-        colors = sample_atlas_bilinear(scene.atlas.maps, scene.map_idx[ff.idx], uv,
+        colors = sample_atlas_bilinear(scene.atlas.maps, map_idx.reshape(-1)[srows], uv,
                                        diff_uv=not cfg.detach_bary, K=1)
         ambient = cfg.ambient_color or (1.0, 1.0, 1.0)
         light_of = lambda normals, points, Rv, view=None: _light(
             normals, points, Rv, cfg.light_type, cfg.light_direction,
             cfg.light_location, ambient, cfg.diffuse_color, view=view)
-        verts, faces = scene.verts, scene.faces
         rows = ff.idx + ff.view * F
         if cfg.shading == "flat":
             fn = face_normals(verts, faces)
-            cent = verts[faces].mean(dim=1)
-            light = gather_rows(torch.cat([light_of(fn, cent, R[b]) for b in range(B)]),
-                                rows)
+            cent = verts[:, faces].mean(dim=-2)
+            light = gather_rows(torch.cat([light_of(fn[b * S // B], cent[b * S // B], R[b])
+                                           for b in range(B)]), rows)
         elif cfg.shading == "gouraud":
             vn = vertex_normals(verts, faces)
-            light_v = torch.cat([light_of(vn, verts, R[b])[faces].reshape(F, 9)
-                                 for b in range(B)])
+            light_v = torch.cat([
+                light_of(vn[b * S // B], verts[b * S // B], R[b])[faces].reshape(F, 9)
+                for b in range(B)])
             light = interp_corner_table(ff, light_v, rows)
         else:  # phong: the light of the interpolated, renormalized normal
-            n = interp_corner_table(ff, vertex_normals(verts, faces)[faces].reshape(F, 9))
+            corners = lambda t: t[:, faces].reshape(-1, 9)
+            n = interp_corner_table(ff, corners(vertex_normals(verts, faces)), srows)
             n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
-            pts = interp_corner_table(ff, verts[faces].reshape(F, 9))
+            pts = interp_corner_table(ff, corners(verts), srows)
             light = light_of(n, pts, R, view=ff.view)
         alpha = (fragment_alpha_flat(ff, sigma, clip_inside=cfg.clip_inside)
-                 * gather_rows(scene.faces_alpha, ff.idx))
+                 * gather_rows(faces_alpha.reshape(-1), srows))
         N = B * H * W * K
         dense = lambda v: torch.zeros((N,) + v.shape[1:], dtype=v.dtype,
                                       device=v.device).index_copy(0, sel, v)
@@ -285,8 +293,9 @@ class Renderer:
 
 def fragment_streams(scene: MeshScene, geom, p2f, detach_z=True,
                      image_size=None, row0=0):
-    """The fragment stage's inputs for B views: the (B * F, 20) face table
-    and the per-fragment row ids (int32), validity and pixel NDC centers.
+    """The fragment stage's inputs for B views (S * B' of a slot-batched
+    scene): the (B * F, 20) face table and the per-fragment row ids
+    (int32), validity and pixel NDC centers.
     The fused stage (K3) gives z no cotangent, so z is detached there;
     the uv-differentiable stage keeps it (``detach_z=False``). p2f
     (B, H, W, K) holds the rows from ``row0`` of an image of
@@ -297,19 +306,20 @@ def fragment_streams(scene: MeshScene, geom, p2f, detach_z=True,
     dev = p2f.device
     # one face table per view: gradient-carrying columns (vertex xy, z
     # unless detached, face alpha) and gradient-free ones (uv corners, map
-    # index)
+    # index); a slot-batched scene's B = S * B' views take their slot's
+    # face alpha and map index
     stat = torch.cat([
-        scene.uv_verts[scene.uv_faces].reshape(F, 6),
-        scene.map_idx[:, None].to(torch.float32),
-        torch.zeros(F, 1, device=dev),
+        scene.uv_verts[scene.uv_faces].reshape(F, 6).repeat(B, 1),
+        per_view(scene.map_idx, B)[:, None].to(torch.float32),
+        torch.zeros(B * F, 1, device=dev),
     ], dim=1).detach()
     z = geom.z.reshape(B * F, 3)
     table = torch.cat([
         geom.xy.reshape(B * F, 6),
         z.detach() if detach_z else z,
-        scene.faces_alpha.repeat(B)[:, None],
+        per_view(scene.faces_alpha, B)[:, None],
         torch.zeros(B * F, 2, device=dev),
-        stat.repeat(B, 1),
+        stat,
     ], dim=1).contiguous()
 
     view_off = torch.arange(B, device=dev, dtype=torch.int32) * F

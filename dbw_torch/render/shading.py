@@ -40,10 +40,10 @@ def _light(normals, points, R, light_type, light_direction_cam,
 
 def vertex_normals(verts, faces):
     """Area-weighted unit vertex normals (V, 3): each face's cross product
-    added to its three vertices."""
-    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    added to its three vertices; (S, V, 3) of slot-batched verts."""
+    v0, v1, v2 = (verts[..., faces[:, k], :] for k in range(3))
     fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # area-weighted
     vn = torch.zeros_like(verts)
     for k in range(3):
-        vn = vn.index_add(0, faces[:, k], fn)
+        vn = vn.index_add(-2, faces[:, k], fn)
     return vn / torch.linalg.vector_norm(vn, dim=-1, keepdim=True).clamp(min=1e-12)

@@ -10,9 +10,11 @@ Every scene shares the model config and the training config but for
 ``training.seed``, and the scenes' train loaders have one batch count and
 image size. Scene i's seeds are its config seed plus 0..S-1. The
 parameters are stacked leaves (n_scene, S, ...) under one torch Adam; each
-step runs the scenes one after the other, each with its own views and its
-own camera (``parallel/scenes.py``), and within a scene its seeds one after
-the other (``parallel/seeds.py``). Slot (i, j) draws from a generator
+step runs every (scene, seed) slot through ``parallel/scenes.py``
+``scene_backward``: batched by default, one step of n_scene * S slots,
+each scene's views with its own views and intrinsics (the JAX trainer's
+nested vmap), or under ``DBW_SEED_EXEC=map`` the scenes one after the
+other with the camera swap and each scene's seeds one after the other. Slot (i, j) draws from a generator
 seeded by ``step_seed(scene_seeds[i][j], step counter)``, so it is the port
 Trainer's run of scene i's config with that seed. The JAX package pads the
 shorter scenes' view stacks to one device array by repeating their last
@@ -50,8 +52,9 @@ import torch
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..parallel.mesh import world
-from ..parallel.scenes import MultiSceneRunner, camera_state, make_scene_mesh, use_camera
-from ..parallel.seeds import (adam_step, n_slots, pad_seeds, seed_backward, slot, stack_params,
+from ..parallel.scenes import (MultiSceneRunner, camera_state, make_scene_mesh, scene_backward,
+                               use_camera)
+from ..parallel.seeds import (adam_step, pad_seeds, seed_axis_exec, slot, stack_params,
                               stacked_leaves)
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.logger import print_log, print_warning
@@ -281,10 +284,8 @@ class MultiSceneTrainer:
     # ------------------------------------------------------------------
 
     def _val_and_log(self, it, epoch, batch):
-        alphas = torch.stack([
-            torch.stack([self.model.get_opacities(slot(slot(self.params, i), j))
-                         for j in range(n_slots(slot(self.params, i)))])
-            for i in range(n_slots(self.params))])
+        alphas = seed_axis_exec(lambda p: seed_axis_exec(self.model.get_opacities, p),
+                                self.params)
         if self.mesh:
             alphas = self._gather_slots(alphas)
         alphas = alphas.cpu().numpy()
@@ -322,19 +323,17 @@ class MultiSceneTrainer:
             self._loss_buffer.append((rows, np.array(n_reals, np.int64)))
             return
         self.optimizer.zero_grad(set_to_none=True)
-        rows, n_reals = [], []
+        views, gens, n_reals = [], [], []
         for i, ids in enumerate(ids_sc):
             idx, n_real = _pad_ids(ids, self.batch_size)
-            imgs, R, T = gather_views(self.datasets[i], idx, self.device)
-            gens = [torch.Generator(device=self.device).manual_seed(
-                step_seed(s, self._step_ctr)) for s in self.scene_seeds[i]]
-            with use_camera(self.model, self.cameras[i]):
-                rows.append(seed_backward(self.model, slot(self.params, i), self.phase,
-                                          imgs, R, T, gens))
+            views.append(gather_views(self.datasets[i], idx, self.device))
+            gens.append([torch.Generator(device=self.device).manual_seed(
+                step_seed(s, self._step_ctr)) for s in self.scene_seeds[i]])
             n_reals.append(n_real)
         self._step_ctr += 1
+        rows = scene_backward(self.model, self.params, self.phase, views, self.cameras, gens)
         adam_step(self.optimizer, self.params)
-        self._loss_buffer.append((torch.stack(rows), np.array(n_reals, np.int64)))
+        self._loss_buffer.append((rows, np.array(n_reals, np.int64)))
 
     def _run_group(self, group):
         """A group of (batch, per-scene view ids), one step after the other."""

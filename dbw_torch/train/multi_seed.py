@@ -8,8 +8,10 @@ selection of the lowest train loss), on one card or on a mesh of ranks.
         [--n-spatial 2]
 
 The S seeds' parameters are stacked leaves (S, ...) under one torch Adam
-with the texture group, and each step runs the seeds one after the other
-on the same views (``parallel/seeds.py``). Slot s draws from a generator
+with the texture group, and each step runs the seeds on the same views
+through ``parallel/seeds.py``'s executor: by default batched, one forward
+and backward of all S slots with one launch of each kernel
+(``DBW_SEED_EXEC=map``: one slot after the other). Slot s draws from a generator
 seeded by ``step_seed(seed_s, step counter)``, as the port Trainer does,
 and both take their batches from a loader seeded 0: slot s of a protocol
 run is the port Trainer's run with ``training.seed = seed_s``.
@@ -71,8 +73,8 @@ import torch
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..parallel.mesh import factor_devices, make_mesh, world
-from ..parallel.seeds import (MultiSeedRunner, n_slots, pad_seeds, select_best_seed, slot,
-                              stacked_leaves)
+from ..parallel.seeds import (MultiSeedRunner, pad_seeds, seed_axis_exec, select_best_seed,
+                              slot, stacked_leaves)
 from ..render.trajectory import to_u8
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.image import ImageLogger
@@ -315,8 +317,7 @@ class MultiSeedTrainer:
     def _val_and_log(self, it, epoch, batch):
         """Per-seed opacity streams and the dead-seed rule (the reference
         Trainer's per run)."""
-        alphas = self.mesh.gather(torch.stack([self.model.get_opacities(slot(self.params, i))
-                                               for i in range(n_slots(self.params))]))
+        alphas = self.mesh.gather(seed_axis_exec(self.model.get_opacities, self.params))
         alphas = alphas.cpu().numpy()
         alive = (alphas > 0.01).sum(axis=1) > 0
         for i in range(self.n_valid):

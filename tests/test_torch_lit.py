@@ -1,7 +1,8 @@
 """The config surface of the renderers in the PyTorch port against the JAX
 package on the CPU: lit shading (flat, gouraud, phong) under ambient,
 directional and point lights, with ``detach_bary`` on and off, its images
-and its gradients; the fov camera's intrinsics; the registries' errors.
+(its gradients: test_torch_lit_grads.py); the fov camera's intrinsics;
+the registries' errors.
 The cases follow the JAX package's own (tests/test_render_extras.py,
 TestShadingTypesAndRegistries)."""
 
@@ -114,24 +115,6 @@ def test_default_ambient_lit_equals_raw(shading):
     lit, _ = _renders(dict(faces_per_pixel=2, shading_type=shading, detach_bary=False))
     raw, _ = _renders(dict(faces_per_pixel=2, shading_type="raw", detach_bary=False))
     np.testing.assert_allclose(lit, raw, atol=1e-5)
-
-
-@pytest.mark.parametrize("detach_bary", [True, False])
-@pytest.mark.parametrize("shading,light", [("flat", "directional"),
-                                           ("gouraud", "point"),
-                                           ("phong", "directional")])
-def test_lit_gradients_match_jax(shading, light, detach_bary):
-    """Every leaf's gradient of a weighted sum of the lit render against
-    JAX's VJP, within 1e-4 of the leaf's largest."""
-    w = np.random.default_rng(4).standard_normal((len(AZIMS), H, W, 3)).astype(np.float32)
-    got, ref = _renders(dict(faces_per_pixel=2, shading_type=shading,
-                             lights=LIGHTS[light], detach_bary=detach_bary),
-                        with_grad=True, w=w)
-    for k, want in ref.items():
-        scale = np.abs(want).max()
-        np.testing.assert_allclose(got[k], want, atol=1e-4 * max(scale, 1e-12), err_msg=k)
-    # without detach_bary the pose learns through the texture sample too
-    assert np.abs(ref["T"]).max() > 0
 
 
 def test_gouraud_differs_from_phong_but_close():

@@ -1,10 +1,12 @@
 """The port's multi-seed protocol on the CPU: the seed helpers and the
 stacked step against the JAX package's, each slot against the port
-Trainer with that seed (bit for bit), the loop against the JAX
-MultiSeedTrainer's (the device work stubbed on both sides), selection and
-dead seeds, a bitwise kill/resume, ``multi_model.pkl`` read by each package
-from the other, the run directory, and the eval arguments the protocol
-passes (``quali``, ``lpips``, ``label``, ``hard_inference``).
+Trainer with that seed (bit for bit under the map executor, within
+BATCHED_LOSS_RTOL and BATCHED_PARAM_ATOL under the default batched one),
+the loop against the JAX MultiSeedTrainer's (the device work stubbed on
+both sides), selection and dead seeds, a bitwise kill/resume,
+``multi_model.pkl`` read by each package from the other, the run
+directory, and the eval arguments the protocol passes (``quali``,
+``lpips``, ``label``, ``hard_inference``).
 
 The JAX trainer sees the 8 virtual CPU devices of tests/conftest.py and
 takes its mesh path, which may pad the seed slots; only the valid slots
@@ -37,6 +39,10 @@ PARAM_ATOL = 3e-4
 # the JAX package's own jit-vs-eager gap on the ground texture of seed 7
 # after 3 steps is 4.6e-4 (see the module docstring)
 GROUND_TXT_ATOL = 5e-4
+# the batched protocol's slots against the Trainer over the whole tiny run
+# (12 steps; measured 1.5e-6 and 3.6e-7)
+BATCHED_LOSS_RTOL = 1e-5
+BATCHED_PARAM_ATOL = 1e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,7 +116,9 @@ def test_select_best_seed_matches_jax(losses, n_valid):
         np.testing.assert_array_equal(got_p[k].numpy(), np.asarray(ref_p[k]))
 
 
-def test_seed_axis_exec_runs_slots_in_order():
+def test_seed_axis_exec_runs_slots_in_order(monkeypatch):
+    """The map executor: one call a slot, in slot order."""
+    monkeypatch.setenv("DBW_SEED_EXEC", "map")
     calls = []
 
     def fn(p, g):
@@ -199,13 +207,16 @@ def _record(t, out, pick):
 
 @pytest.fixture(scope="module")
 def slot_runs(tmp_path_factory):
-    """A 2-seed protocol and the Trainer with each seed, with their
+    """A 2-seed protocol under the map executor (each slot's step is the
+    Trainer's own code) and the Trainer with each seed, with their
     per-step losses."""
     tmp = tmp_path_factory.mktemp("slots")
     ms = _quiet(MultiSeedTrainer(_cfg(), tmp / "protocol", SEEDS, device="cpu"))
     ms_losses = []
     _record(ms, ms_losses, lambda t: t._loss_buffer[-1][0].clone())
-    ms.run()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DBW_SEED_EXEC", "map")
+        ms.run()
     trainers = []
     for s in SEEDS:
         t = Trainer(_cfg(seed=s), tmp / f"trainer{s}", device="cpu", seed=s)
@@ -239,6 +250,28 @@ def test_slot_equals_trainer_bitwise(slot_runs, slot):
     ref = t.train_metrics.read_log()
     np.testing.assert_array_equal(mine["iteration"], ref["iteration"])
     np.testing.assert_array_equal(mine[f"loss_s{s}"], ref["loss_total"])
+
+
+def test_batched_slots_match_trainers(slot_runs, tmp_path):
+    """Under the default (batched) executor slot s follows the Trainer's
+    run with training.seed = s, every slot in one forward: each step's
+    loss within rtol BATCHED_LOSS_RTOL, the final parameters within
+    BATCHED_PARAM_ATOL (the batched forward's values are each slot's bit
+    for bit; its backward rounds a few sums otherwise, which Adam carries
+    on over the run's steps)."""
+    _, ms_map, map_losses, trainers = slot_runs
+    ms = _quiet(MultiSeedTrainer(_cfg(), tmp_path / "protocol", SEEDS, device="cpu"))
+    losses = []
+    _record(ms, losses, lambda t: t._loss_buffer[-1][0].clone())
+    ms.run()
+    losses = torch.stack(losses)
+    assert losses.shape == map_losses.shape
+    for i, (t, tl) in enumerate(trainers):
+        np.testing.assert_allclose(losses[:, i].numpy(), tl.numpy(), rtol=BATCHED_LOSS_RTOL)
+        for k, p in t.params.items():
+            np.testing.assert_allclose(ms.params[k][i].detach().numpy(),
+                                       p.detach().numpy(), atol=BATCHED_PARAM_ATOL,
+                                       err_msg=(i, k))
 
 
 def test_protocol_checkpoints_load_as_trainer_checkpoints(slot_runs):
