@@ -131,7 +131,27 @@ Phases, one line each (or a few):
    ``torch.cuda.synchronize`` and counting the dispatchers (renderer's
    ``rasterize``, ``frag_fwd``, ``frag_bwd``, ``quad_maps_grad``,
    ``small_table_scatter_add``) as launches; ``numbers`` from a one-rank
-   ``protocol_run`` (about 2 min).
+   ``protocol_run`` (about 2 min);
+16. bench: ``python -m dbw_torch.bench`` (bench.py's workload: 4 views at
+   300x400, K=10, the full loss stack, forward, backward and Adam; 20
+   steps in calls of 5 after a warm-up until two calls agree within 10%)
+   in its own process at 10 and at 50 blocks, each JSON line printed on a
+   line of its own: it must exit 0 on the card with finite numbers and
+   launch K1, K1-hard, K2, K3 and K5 once and K4 twice a step. K1 (soft,
+   every slot equal), K2, K3 and K4 against their plain twins on the
+   blocks pass at 50 blocks (4,000 faces); the trace twin
+   (scripts/torch_trace_bench.py) of the bench step at both widths: its
+   top 10 device ops and the blend's scans' share of device time; the
+   requant twin (scripts/torch_requant_run.py) on phase 8's model.pkl and
+   final_scores.tsv: the Trainer's header, its unrounded scores within a
+   relative 1e-5, the provenance note written; the viz probe
+   (scripts/torch_viz_probe.py) on that run: each viz stream's ms.
+   Rehearse it here by running ``phase_bench(torch.device("cpu"), run,
+   scores)`` on a tiny Trainer run with the ``*_cuda`` wrappers pointed at
+   their plain twins, ``cuda_ms`` stubbed, ``dbw_torch.bench.make_model``
+   at 30x40, the bench processes given ``--cpu --img-size 30 40`` and
+   their lines' backend and launches rewritten as the card's, and the two
+   scripts' ``DEFAULT_DEVICE`` set to the CPU (about 2 min).
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.
@@ -306,6 +326,21 @@ MESH_PARAM_ATOL = 3e-4
 MESH_TIMEOUT_S = 900
 # the collectives timed alone: calls per timing
 N_COLLECTIVE_REPS = 20
+# the bench phase: `python -m dbw_torch.bench` with these flags at each
+# block count (10, the flagship, and 50, the reference's largest and the
+# width of configs/bmvs/gundam_50.yml), each in its own process; every
+# kernel of the decoupled step must launch these many times a step
+BENCH_ARGS = ("--steps", "20", "--steps-per-call", "5", "--max-warmup-calls", "10",
+              "--max-warmup-s", "120")
+BENCH_BLOCKS = (10, 50)
+BENCH_TIMEOUT_S = 300
+BENCH_STEP_LAUNCHES = {"K1_select": 1, "K1_select_hard": 1, "K2_frag_fwd": 1,
+                       "K3_frag_bwd": 1, "K4_texel_grad": 2, "K5_small_scatter": 1}
+# the bench trace (scripts/torch_trace_bench.py): steps traced, ops listed
+N_TRACE_STEPS = 3
+TRACE_TOP = 10
+# the requant twin's scores against the Trainer's own, relative
+REQUANT_RTOL = 1e-5
 
 
 def say(phase, msg):
@@ -402,9 +437,10 @@ def cameras(n, device):
     return R.to(device), T.to(device)
 
 
-def check_selection(label, got, ref, packed, blur, rcfg, row_range=None):
+def check_selection(label, got, ref, packed, blur, rcfg, row_range=None, exact=False):
     """K1: slot-for-slot equality with the plain version, except near-ties
-    (at most 0.1% of slots, each within |dz| < 1e-5)."""
+    (at most 0.1% of slots, each within |dz| < 1e-5); ``exact``: no slot
+    may differ."""
     from dbw_torch.render import rasterize as rz
     from dbw_torch.render.cameras import ndc_pixel_centers
 
@@ -418,10 +454,10 @@ def check_selection(label, got, ref, packed, blur, rcfg, row_range=None):
         za, zb = (rz._score(px, py, packed[b, sel[b, i, j, k].long().clamp(min=0)][:, None],
                             blur, rcfg.z_clip, True, True) for sel in (got, ref))
         dz = float((za - zb).abs().max())
-    ok = n_mis / got.numel() <= 1e-3 and dz < 1e-5
+    ok = n_mis == 0 if exact else n_mis / got.numel() <= 1e-3 and dz < 1e-5
+    rule = "none" if exact else "<= 0.1% of slots, near-ties |dz| < 1e-5"
     say("kernels", f"{label}: {n_mis} of {got.numel()} slots differ (max |dz| "
-        f"{dz:.3g}; tolerance: <= 0.1% of slots, near-ties |dz| < 1e-5); "
-        f"valid slots {int((got >= 0).sum())}")
+        f"{dz:.3g}; tolerance: {rule}); valid slots {int((got >= 0).sum())}")
     return dz, ok
 
 
@@ -504,10 +540,12 @@ def k4_library_call(id00, wx, wy, g, R, TW):
     return index_add_call(t[keep], v[keep].contiguous(), R)
 
 
-def check_soft_pass(checks, path, model, scene, phase, R, T, gen, plain_runs=20):
+def check_soft_pass(checks, path, model, scene, phase, R, T, gen, plain_runs=20,
+                    exact_k1=False):
     """K1 soft, K2, K3 and K4 against their plain versions on one scene of
     the soft renderer, at the shapes the path ``path`` gives them (a
-    slot-batched scene: its S * B views, R and T per view)."""
+    slot-batched scene: its S * B views, R and T per view); ``exact_k1``:
+    K1 must equal its twin in every slot."""
     from dbw_torch.render import fragment as fr
     from dbw_torch.render import rasterize as rz
     from dbw_torch.render.renderer import fragment_streams
@@ -524,7 +562,8 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen, plain_runs=20)
     p2f = rz.rasterize_cuda(packed, blur, rcfg)
     ref = rz.rasterize_plain(packed, blur, rcfg_plain)
     dz, ok = check_selection(f"K1 select [{path}, F={packed.shape[1]}, "
-                             f"K={rcfg.faces_per_pixel}]", p2f, ref, packed, blur, rcfg)
+                             f"K={rcfg.faces_per_pixel}]", p2f, ref, packed, blur, rcfg,
+                             exact=exact_k1)
     record(checks, "K1_select", path, dz, ok,
            lambda: rz.rasterize_cuda(packed, blur, rcfg),
            lambda: rz.rasterize_plain(packed, blur, rcfg_plain),
@@ -895,6 +934,14 @@ KERNEL_FAMILIES = {
 }
 
 
+def family_shares(totals):
+    """Each KERNEL_FAMILIES family's share of the summed device time, from
+    {device kernel name: its summed time}."""
+    total = sum(totals.values())
+    return {fam: sum(t for n, t in totals.items() if any(k in n for k in keys)) / total
+            for fam, keys in KERNEL_FAMILIES.items()}
+
+
 def device_events(prof):
     """A profiler's device records (kernels and copies)."""
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -964,8 +1011,7 @@ def profile_steps(model, params, opt, device):
         f"{wall:.2f} ms a step on the host clock: device busy {busy / 1e3:.2f} ms "
         f"of a {span / 1e3:.2f} ms span, idle share {1.0 - busy / span:.3f}; "
         f"summed device time {total / 1e3:.2f} ms")
-    shares = {fam: sum(t for n, t in per_name.items() if any(k in n for k in keys)) / total
-              for fam, keys in KERNEL_FAMILIES.items()}
+    shares = family_shares(per_name)
     say("profile", "share of summed device time: " + ", ".join(
         f"{fam} {v:.3f}" for fam, v in shares.items()))
     for n, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
@@ -1405,18 +1451,21 @@ def check_run_dir(run, n_blocks_kept, n_blocks):
     return missing
 
 
-def phase_trainer(device):
+def phase_trainer(device, keep):
     """The port's Trainer on the shipped config at full width (300x400, 49
     views, 10 blocks, K=10, 256 texels, steps_per_call 5, decoupled env
     pass), only TRAINER_OVERRIDES changed, in a temporary run directory.
     The launch counts are set to 0 just before Trainer.run and read just
-    after. Returns (launches, the K1-hard-at-4x launches of one val
-    interval's viz and of the final eval, the phase's numbers)."""
+    after. The run's model.pkl and final_scores.tsv, with its config
+    dumped as the Trainer's CLI dumps it, are copied to ``keep`` (the bench
+    phase's tools read them). Returns (launches, the K1-hard-at-4x launches
+    of one val interval's viz and of the final eval, the phase's numbers,
+    with the final eval's scores unrounded)."""
     from dbw_torch import kernels
     from dbw_torch.eval import quali, quant
     from dbw_torch.eval.metrics import Metrics
     from dbw_torch.train.trainer import Trainer
-    from dbw_torch.utils.config import load_yaml
+    from dbw_torch.utils.config import dump_yaml, load_yaml
 
     cfg = load_yaml(CONFIG)
     cfg["training"].update(copy.deepcopy(TRAINER_OVERRIDES))
@@ -1438,8 +1487,10 @@ def phase_trainer(device):
         t_train = []
         plots = tr.save_metric_plots
         tr.save_metric_plots = lambda: (t_train.append(time.perf_counter()), plots())[1]
-        with routed([(quant, "quantitative_eval", timed(quant.quantitative_eval,
-                                                        spans["quant"])),
+        quant_scores, quant_eval = [], quant.quantitative_eval
+        with routed([(quant, "quantitative_eval", timed(
+                         lambda *a, **k: quant_scores.append(quant_eval(*a, **k))
+                         or quant_scores[-1], spans["quant"])),
                      (quali, "qualitative_eval", timed(quali.qualitative_eval,
                                                        spans["quali"]))]):
             torch.cuda.synchronize()
@@ -1499,11 +1550,15 @@ def phase_trainer(device):
         if not ok or not_launched:
             raise SystemExit(f"trainer phase failed (kernels not launched: {not_launched})")
         mesh = export_scored_mesh(tr.model, tr.params) + (np.asarray(tr.dataset.pc_gt),)
+        for name in ("model.pkl", "final_scores.tsv"):
+            (keep / name).write_bytes((run / name).read_bytes())
+        dump_yaml(cfg, keep / CONFIG.name)
     numbers = dict(steps_per_s=n_steps / (t_train[0] - t0),
                    steady_steps_per_s=1.0 / (views_per_step * steady),
                    val_interval_ms=1e3 * float(np.median(spans["val"]) + np.median(
                        spans["viz"][1:-1]) + np.median(spans["save"][:-1])),
-                   quant_s=spans["quant"][0], quali_s=spans["quali"][0])
+                   quant_s=spans["quant"][0], quali_s=spans["quali"][0],
+                   final_scores={k: float(v) for k, v in quant_scores[0].items()})
     return launches, viz_ss[1], eval_ss[0], numbers, mesh
 
 
@@ -2105,10 +2160,8 @@ def device_breakdown(fn, n=N_PROFILE_STEPS):
     per_name = {}
     for e in dev:
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    total = sum(per_name.values())
-    shares = {fam: sum(t for k, t in per_name.items() if any(w in k for w in keys)) / total
-              for fam, keys in KERNEL_FAMILIES.items()}
-    return dict(idle_share=1.0 - busy / span, busy_ms=busy / 1e3 / n, shares=shares)
+    return dict(idle_share=1.0 - busy / span, busy_ms=busy / 1e3 / n,
+                shares=family_shares(per_name))
 
 
 def device_idle_share(fn, n=N_PROFILE_STEPS):
@@ -2649,6 +2702,121 @@ def phase_nerfstudio(device):
     return launches, numbers
 
 
+def bench_line(n_blocks):
+    """`python -m dbw_torch.bench` at ``n_blocks`` in its own process: its
+    JSON line, printed on a line of its own; fails unless the run exits 0
+    with finite numbers on the card and every kernel of the decoupled step
+    launched BENCH_STEP_LAUNCHES times a step."""
+    cmd = [sys.executable, "-m", "dbw_torch.bench", *BENCH_ARGS, "--blocks", str(n_blocks)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"bench: {' '.join(cmd[1:])} exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(line), flush=True)
+    extra = line["extra"]
+    numbers = [line["value"]] + [v for v in extra.values()
+                                 if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    launches = extra["launches_per_step"]
+    wrong = {k: launches.get(k) for k, n in BENCH_STEP_LAUNCHES.items() if launches.get(k) != n}
+    say("bench", f"{n_blocks} blocks: {line['value']} steps/s, vs_baseline "
+        f"{line['vs_baseline']}, warmup {extra['warmup_calls']} calls (stable "
+        f"{extra['warmup_stable']}, {extra['cold_start_s']} s), peak "
+        f"{extra['peak_memory_gib']:.3f} GiB, launches per step {launches} "
+        f"(process {time.perf_counter() - t0:.1f} s)")
+    if (extra["backend"] != "cuda" or wrong
+            or not all(math.isfinite(v) for v in numbers + list(launches.values()))):
+        raise SystemExit(f"bench at {n_blocks} blocks: backend {extra['backend']}, "
+                         f"launches off the step's {wrong}, or a number not finite")
+    return line
+
+
+def check_bench_kernels(n_blocks, device):
+    """K1 (soft, exact), K2, K3 and K4 against their plain twins on the
+    blocks pass of the bench model at ``n_blocks`` (the plain twins timed by
+    one call). -> the checks."""
+    from dbw_torch.bench import make_model as bench_model
+
+    model = bench_model(n_blocks=n_blocks, device=device)
+    params = model.init_params(seed=0)
+    phase = model.phase_for_epoch(0)
+    R, T = cameras(N_VIEWS, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    checks = {}
+    with torch.no_grad():
+        noise = torch.randn((model.n_blocks,), generator=gen, device=device)
+        blocks, _ = model.build_blocks(params, phase, noise=noise)
+        check_soft_pass(checks, f"blocks pass, {n_blocks} blocks", model, blocks, phase,
+                        R, T, gen, plain_runs=1, exact_k1=True)
+    del model, params, blocks
+    torch.cuda.empty_cache()
+    report_checks("bench", checks)
+    return checks
+
+
+def trace_shares(n_blocks, device):
+    """The trace twin's top TRACE_TOP device ops of the bench step at
+    ``n_blocks``, and the shares of device time of KERNEL_FAMILIES."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_trace_bench as trace
+
+    say("trace", f"{n_blocks} blocks, {N_TRACE_STEPS} bench steps under torch.profiler:")
+    ops = trace.op_times(trace.capture(N_TRACE_STEPS, n_blocks, device=device), True)
+    trace.print_table(ops, N_TRACE_STEPS, TRACE_TOP, "device")
+    total = sum(ms for ms, _ in ops.values())
+    if not total:
+        # a reading, not a check: see device_ms
+        say("trace", "device time: not measured (the trace held no device record)")
+        return None
+    shares = family_shares({n: ms for n, (ms, _) in ops.items()})
+    say("trace", f"{n_blocks} blocks: {total / N_TRACE_STEPS:.3f} ms of device time a "
+        "step; shares: " + ", ".join(f"{fam} {v:.3f}" for fam, v in shares.items())
+        + " (the blend's scans: 0.300 of the shipped step's device time, PERF.md §5)")
+    return dict(device_ms_per_step=total / N_TRACE_STEPS, **shares)
+
+
+def phase_bench(device, run, trainer_scores):
+    """The bench twin at 10 and 50 blocks in their own processes; the 50-block
+    blocks pass's kernels against their plain twins; the trace twin at both
+    widths; the requant twin on a copy of phase 8's run (its scores against
+    the Trainer's, within REQUANT_RTOL); the viz probe on that run."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_requant_run
+    import torch_viz_probe
+
+    t0 = time.perf_counter()
+    lines = {n: bench_line(n) for n in BENCH_BLOCKS}
+    checks = check_bench_kernels(max(BENCH_BLOCKS), device)
+    traces = {n: trace_shares(n, device) for n in BENCH_BLOCKS}
+
+    old_tsv = (run / "final_scores.tsv").read_text()
+    scores = torch_requant_run.main(["--run", str(run)])
+    new_tsv = (run / "final_scores.tsv").read_text()
+    note = (run / "final_scores.requant.txt").read_text()
+    gaps = {k: abs(float(v) - trainer_scores[k]) / max(abs(trainer_scores[k]), 1e-30)
+            for k, v in scores.items()}
+    header_ok = new_tsv.splitlines()[0] == old_tsv.splitlines()[0]
+    say("requant", f"scripts/torch_requant_run.py on phase 8's model.pkl: header equals "
+        f"the Trainer's {header_ok}, TSV equal {new_tsv == old_tsv}; largest relative gap "
+        f"to the Trainer's unrounded scores {max(gaps.values()):.3g} (tolerance "
+        f"{REQUANT_RTOL:g}); provenance note written {old_tsv in note and new_tsv in note}")
+    if not (header_ok and set(gaps) == set(trainer_scores)
+            and max(gaps.values()) <= REQUANT_RTOL and old_tsv in note and new_tsv in note):
+        raise SystemExit(f"requant: scores or note off: gaps {gaps}")
+
+    say("viz", "scripts/torch_viz_probe.py on phase 8's run:")
+    viz_ms, ckpt_bytes = torch_viz_probe.main(["--run", str(run)])
+    if not all(math.isfinite(v) for v in viz_ms.values()):
+        raise SystemExit(f"viz probe: a time not finite: {viz_ms}")
+    numbers = dict(lines={str(n): line for n, line in lines.items()}, trace=traces,
+                   requant_max_rel_gap=max(gaps.values()), viz_ms=viz_ms,
+                   ckpt_snapshot_bytes=ckpt_bytes, phase_s=time.perf_counter() - t0)
+    say("bench", f"phase in {numbers['phase_s']:.1f} s")
+    return numbers, checks
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2688,7 +2856,8 @@ def main():
     per_step["band"] = band
     phase_train(cfg, device)
     phase_reference(cfg, device)
-    trainer, viz_ss, eval_ss, numbers, mesh = phase_trainer(device)
+    keep = tempfile.TemporaryDirectory()
+    trainer, viz_ss, eval_ss, numbers, mesh = phase_trainer(device, Path(keep.name))
     t0 = time.perf_counter()
     dtu, dtu_numbers = phase_dtu(device)
     say("dtu", f"phase in {time.perf_counter() - t0:.1f} s")
@@ -2713,14 +2882,21 @@ def main():
                                                 per_step["blocks pass"])
     dm_numbers["phase_s"] = time.perf_counter() - t0
     say("device mesh", f"phase in {dm_numbers['phase_s']:.1f} s")
+    with keep:
+        bench, bench_checks = phase_bench(device, Path(keep.name), numbers["final_scores"])
     say("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
-    for n, cs in list(lit_checks.items()) + list(protocol_checks.items()):
+    for n, cs in (list(lit_checks.items()) + list(protocol_checks.items())
+                  + list(bench_checks.items())):
         results[n]["checks"] += cs
         results[n]["max_abs_err"] = max(c["max_abs_err"] for c in results[n]["checks"])
     per_step["lit blocks pass"] = per_step["lit env pass"] = {
         n: lit[n] / n_lit_steps for n in SOURCES}
     per_step["protocol blocks pass"] = per_step["protocol env pass"] = protocol["per_iteration"]
+    bench_launches = {n: line["extra"]["launches_per_step"]
+                      for n, line in bench["lines"].items()}
+    for n in BENCH_BLOCKS:
+        per_step[f"blocks pass, {n} blocks"] = bench_launches[str(n)]
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
         n: 0.0 for n in SOURCES}
@@ -2741,12 +2917,14 @@ def main():
          "protocol_launches_per_val_interval": protocol["per_val_interval"][n],
          "scenes_launches_per_iteration": scenes_numbers["launches_per_iteration"][n],
          "lit_launches": lit[n], "nerfstudio_trainer_launches": ns[n],
+         "bench_launches_per_step": {b: bl[n] for b, bl in bench_launches.items()},
          "mesh_launches": {path: [c[n] for c in per_rank]
                            for path, per_rank in dm_launches.items()},
          **results[n]}
         for n in SOURCES], "trainer": numbers, "dtu": dtu_numbers, "mesh": mesh_numbers,
         "vgg": vgg, "protocol": protocol_numbers, "scenes": scenes_numbers,
-        "lit": lit_numbers, "nerfstudio": ns_numbers, "device_mesh": dm_numbers}
+        "lit": lit_numbers, "nerfstudio": ns_numbers, "device_mesh": dm_numbers,
+        "bench": bench}
     line["kernels"][list(SOURCES).index("K1_select_hard_ss")].update(
         launches_per_val_interval=viz_ss, launches_per_final_eval=eval_ss)
     print(json.dumps(line), flush=True)

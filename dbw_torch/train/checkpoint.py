@@ -333,15 +333,16 @@ def load_model_from_checkpoint(path, img_size, device=DEFAULT_DEVICE, **override
     model_kwargs (with ``overrides``) on ``device``; the image size comes
     from the dataset, not from the kwargs."""
     from ..convert import scene_params_from_numpy
-    from ..models.dbw import BlocksWorld
+    from ..models import get_model
 
     state = load_checkpoint(path)
     kwargs = dict(state.get("model_kwargs") or {})
     kwargs.update(overrides)
-    name = kwargs.pop("name", state.get("model_name", "dbw"))
-    if name != "dbw":
-        raise NotImplementedError(f"model {name!r} is not ported")
+    # the checkpoint's model_name picks the model (an unknown one raises
+    # KeyError), not the name among the kwargs; the image size comes from
+    # the dataset
+    kwargs.pop("name", None)
     kwargs.pop("img_size", None)
-    model = BlocksWorld(img_size, device=device, **kwargs)
+    model = get_model(state.get("model_name", "dbw"))(img_size, device=device, **kwargs)
     params = scene_params_from_numpy(state["model_state"], model.device)
     return model, params, state

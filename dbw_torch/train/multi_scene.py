@@ -51,6 +51,7 @@ import torch
 
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
+from ..models import create_model
 from ..parallel.mesh import world
 from ..parallel.scenes import (MultiSceneRunner, camera_state, make_scene_mesh, scene_backward,
                                use_camera)
@@ -64,7 +65,7 @@ from .multi_seed import (evaluate_slots, gathered_snapshot, jax_key, shared_lpip
                          slot_snapshot)
 from .optimizer import create_optimizer
 from .scheduler import base_lrs, create_scheduler, set_lrs
-from .trainer import _HostWorker, _pad_ids, create_model, gather_views, step_seed
+from .trainer import _HostWorker, _pad_ids, gather_views, step_seed
 
 MULTI_SCENE_CKPT = "multi_scene_model.pkl"
 

@@ -72,6 +72,7 @@ import torch
 
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
+from ..models import create_model
 from ..parallel.mesh import factor_devices, make_mesh, world
 from ..parallel.seeds import (MultiSeedRunner, pad_seeds, seed_axis_exec, select_best_seed,
                               slot, stacked_leaves)
@@ -83,7 +84,7 @@ from ..utils.misc import path_mkdir, use_seed
 from . import checkpoint as ck
 from .optimizer import create_optimizer
 from .scheduler import base_lrs, create_scheduler, set_lrs
-from .trainer import _HostWorker, _pad_ids, create_model, gather_views, step_seed
+from .trainer import _HostWorker, _pad_ids, gather_views, step_seed
 
 MULTI_CKPT = "multi_model.pkl"
 

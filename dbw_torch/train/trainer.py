@@ -37,7 +37,7 @@ import torch
 
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
-from ..models.dbw import BlocksWorld
+from ..models import create_model
 from ..render.trajectory import to_u8
 from ..utils.colors import fancy_colormap
 from ..utils.config import dump_yaml, load_yaml
@@ -127,14 +127,6 @@ def gather_views(dataset, idx, device):
     """The views ``idx`` of a dataset as (imgs, R, T) tensors on ``device``."""
     return tuple(torch.from_numpy(a[idx]).to(device, non_blocking=True)
                  for a in (dataset.imgs, dataset.R, dataset.T))
-
-
-def create_model(cfg, img_size, device=DEFAULT_DEVICE):
-    kw = dict(cfg["model"])
-    name = kw.pop("name", "dbw")
-    if name != "dbw":
-        raise NotImplementedError(f"model {name!r} is not ported")
-    return BlocksWorld(img_size, device=device, **kw)
 
 
 class Trainer:

@@ -38,6 +38,7 @@ MODULES = [
     "dbw_torch.train.multi_seed", "dbw_torch.train.multi_scene",
     "dbw_torch.losses", "dbw_torch.data.nerfstudio", "dbw_torch.ops.mesh_utils",
     "dbw_torch.eval.baselines", "dbw_torch.models.tools",
+    "dbw_torch.bench", "dbw_torch.models",
 ]
 BAD = ("sorted(m for m in sys.modules if m.split('.')[0] in "
        "('jax', 'jaxlib', 'optax', 'dbw_tpu'))")
@@ -71,6 +72,24 @@ def test_multi_card_script_imports_no_jax():
         "import sys\n"
         f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
         "import torch_multi_card\n"
+        f"bad = {BAD}\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("script", ["torch_trace_bench", "torch_requant_run",
+                                    "torch_viz_probe"])
+def test_tool_scripts_import_no_jax(script):
+    """The bench trace, requant and viz-probe scripts (which import what
+    they run at the top) load no JAX module."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        f"import {script}\n"
         f"bad = {BAD}\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
