@@ -20,9 +20,10 @@ Phases, one line each (or a few):
    features in their bfloat16 default) takes 10 Adam steps; every kernel
    must launch in every step. The same step with float32 features, timed
    in the same call, and the card's bfloat16 features held against its
-   float32 ones. Then a few steps split by CUDA events into env pass,
-   blocks pass, losses, backward and Adam, and a torch.profiler trace of 3
-   steps: the device's idle share and where its time goes;
+   float32 ones. Then a few steps split into the layers of
+   ``dbw_torch.utils.profiling`` (each forward and backward leaf's stream
+   ms), and a torch.profiler trace of 3 steps: the device's idle share and
+   where its time goes;
 5. joint path: the same config with decouple_rendering=False, 3 steps;
 5b. band path: the config's predict in 2 row bands (0-149, 150-299) and in
    3 bands of 100 rows against the full predict; K1's band output bitwise
@@ -872,7 +873,7 @@ def run_steps(tag, model, params, opt, n_steps, kernel_names, device):
 
 def phase_main(cfg, device):
     """The shipped config's train step (decoupled env pass), N_STEPS times,
-    through model.forward; then the step split by CUDA events, and a
+    through model.forward; then the step split into its layers, and a
     profiler trace of a few steps."""
     from dbw_torch.train.optimizer import create_optimizer
 
@@ -1019,38 +1020,36 @@ def profile_steps(model, params, opt, device):
 
 
 def split_step(model, params, opt, device):
-    """Time the parts of the decoupled step with CUDA events: the two passes
-    that BlocksWorld.predict chains (env pass; blocks pass + composite), the
-    losses, the backward and Adam. Median over N_SPLIT_STEPS - 1 steps."""
+    """The decoupled step's layers on the stream: the leaves of
+    ``dbw_torch.utils.profiling`` forward and backward, recorded under
+    ``recording()`` over N_SPLIT_STEPS steps. Median over the last
+    N_SPLIT_STEPS - 1 steps."""
+    from dbw_torch.parallel.seeds import adam_step, slot_backward
+    from dbw_torch.utils import profiling
+
     phase = model.phase_for_epoch(0, training=True)
     imgs = torch.from_numpy(np.random.default_rng(1).random(
         (N_VIEWS,) + IMG_SIZE + (3,), np.float32)).to(device)
     R, T = cameras(N_VIEWS, device)
     gen = torch.Generator(device=device).manual_seed(2)
-    parts = {k: [] for k in ("env pass", "blocks pass", "losses", "backward", "adam")}
-    for step in range(N_SPLIT_STEPS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        opt.zero_grad(set_to_none=True)
-        noise = torch.randn((model.n_blocks,), generator=gen, device=device)
-        ev[0].record()
-        env_out = model.env_pass(params, phase, R, T)
-        ev[1].record()
-        rec, aux = model.blocks_pass(params, phase, R, T, env_out, noise=noise)
-        ev[2].record()
-        losses = model.compute_losses(imgs, rec, params, phase, aux, generator=gen)
-        ev[3].record()
-        losses["total"].backward()
-        ev[4].record()
-        opt.step()
-        ev[5].record()
-        torch.cuda.synchronize()
-        if step:
-            for i, k in enumerate(parts):
-                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
-    med = {k: float(np.median(v)) for k, v in parts.items()}
-    say("split", "decoupled step by CUDA events (median of "
-        f"{N_SPLIT_STEPS - 1}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-        + f"; sum {sum(med.values()):.2f} ms")
+    profiling.reset()
+    with profiling.recording():
+        for _ in range(N_SPLIT_STEPS):
+            with profiling.step():
+                opt.zero_grad(set_to_none=True)
+                slot_backward(model, params, phase, imgs, R, T, gen)
+                adam_step(opt, params)
+    steps = profiling.summary()[1:N_SPLIT_STEPS]
+    profiling.reset()
+    # stream ms on the card, host ms where no CUDA event was taken
+    kind = "stream_ms" if steps[0]["stream_ms"] else "host_ms"
+    names = [n for n in steps[0][kind]
+             if n in profiling.LEAVES or n.startswith(profiling.BACKWARD)]
+    med = {n: float(np.median([s[kind].get(n, 0.0) for s in steps])) for n in names}
+    step_ms = float(np.median([s[kind]["dbw.step"] for s in steps]))
+    say("split", f"decoupled step's leaves, {kind} (profiling.summary, median of "
+        f"{len(steps)}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+        + f"; sum {sum(med.values()):.2f} ms of dbw.step's {step_ms:.2f} ms")
 
 
 def phase_joint(cfg, device):

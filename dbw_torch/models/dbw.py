@@ -49,6 +49,7 @@ from ..ops.uv import icosphere_uv_atlas, pad_u_atlas, spherical_uv_from_points
 from ..render.cameras import Camera
 from ..render.meshes import MeshScene, TextureAtlas, concat_scenes
 from ..render.renderer import make_env_renderer, make_train_renderer, make_viz_renderer
+from ..utils import profiling
 from ..utils.colors import fancy_colormap
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -532,21 +533,28 @@ class BlocksWorld:
     def env_pass(self, params, phase: Phase, R, T, row_range=None):
         """Decoupled env pass: dome + ground through the hard env renderer
         -> (rec_env (B, H, W, 3), env raw maps)."""
-        env, env_raws = self.build_env(params, phase)
-        rec_env = self.renderer_env.render(env, R, T, row_range=row_range)
-        return rec_env[..., :3], env_raws
+        with profiling.span("dbw.env_pass"):
+            with profiling.span("dbw.build"):
+                env, env_raws = profiling.mark(self.build_env(params, phase), "dbw.build")
+            rec_env = self.renderer_env.render(env, R, T, row_range=row_range)
+            return rec_env[..., :3], env_raws
 
     def blocks_pass(self, params, phase: Phase, R, T, env_out, noise=None,
                     row_range=None):
         """Decoupled blocks pass: the soft blocks render composited over the
         env pass's output ``env_out`` -> (rec (B, H, W, 3), aux)."""
         rec_env, env_raws = env_out
-        blocks, aux = self.build_blocks(params, phase, noise=noise)
-        rgba = self.renderer.render(blocks, R, T, sigma=phase.sigma,
-                                    row_range=row_range)
-        mask = rgba[..., 3:]
-        aux["env_raw_maps"] = env_raws
-        return rgba[..., :3] * mask + (1.0 - mask) * rec_env, aux
+        with profiling.span("dbw.blocks_pass"):
+            with profiling.span("dbw.build"):
+                blocks, aux = profiling.mark(self.build_blocks(params, phase, noise=noise),
+                                             "dbw.build")
+            rgba = self.renderer.render(blocks, R, T, sigma=phase.sigma,
+                                        row_range=row_range)
+            with profiling.span("dbw.blend"):
+                mask = rgba[..., 3:]
+                aux["env_raw_maps"] = env_raws
+                rec = profiling.mark(rgba[..., :3] * mask + (1.0 - mask) * rec_env, "dbw.blend")
+            return rec, aux
 
     def predict(self, params, phase: Phase, R, T, noise=None, row_range=None):
         """Render B views (R (B, 3, 3), T (B, 3)) -> (rec (B, H, W, 3), aux).
@@ -560,7 +568,9 @@ class BlocksWorld:
             env_out = self.env_pass(params, phase, R, T, row_range=row_range)
             return self.blocks_pass(params, phase, R, T, env_out, noise=noise,
                                     row_range=row_range)
-        scene, aux, env_raws = self.build_scene(params, phase, noise=noise)
+        with profiling.span("dbw.build"):
+            scene, aux, env_raws = profiling.mark(self.build_scene(params, phase, noise=noise),
+                                                  "dbw.build")
         rec = self.renderer.render(scene, R, T, sigma=phase.sigma,
                                    row_range=row_range)[..., :3]
         aux["env_raw_maps"] = env_raws
@@ -622,7 +632,8 @@ class BlocksWorld:
         (N, 1000, 3) uniform [0, 1) draw for the overlap points. S stacked
         slots: rec (S * B, H, W, 3) slot-major, imgs per view or the B views
         every slot shares, ``overlap_u`` (S, N, 1000, 3); each term is then
-        (S,), slot s's value."""
+        (S,), slot s's value. The leaves ``dbw.loss.other`` (rgb; the
+        others and the total) and ``dbw.loss.vgg`` (the perceptual term)."""
         w = self.loss_weights
         lead = self.slot_shape(params)
         coarse_f = 1.0 if phase.coarse else 0.0
@@ -631,53 +642,59 @@ class BlocksWorld:
         smean = (lambda x: x.mean()) if not lead else (lambda x: x.reshape(*lead, -1).mean(-1))
         losses = {}
         if "rgb" in w:
-            if lead:
-                views = imgs if len(imgs) == len(rec) else imgs.repeat(lead[0], 1, 1, 1)
-                losses["rgb"] = w["rgb"] * self.criterion(views, rec, slots=lead[0])
-            else:
-                losses["rgb"] = w["rgb"] * torch.mean(self.criterion(imgs, rec))
+            with profiling.span("dbw.loss.other"):
+                if lead:
+                    views = imgs if len(imgs) == len(rec) else imgs.repeat(lead[0], 1, 1, 1)
+                    rgb = w["rgb"] * self.criterion(views, rec, slots=lead[0])
+                else:
+                    rgb = w["rgb"] * torch.mean(self.criterion(imgs, rec))
+                losses["rgb"] = profiling.mark(rgb, "dbw.loss.other")
         if "perceptual" in w:
-            losses["perceptual"] = (w["perceptual"] * factor
-                                    * self.perceptual_loss(imgs, rec, slots=(lead or (None,))[0]))
-        alpha_sel = (aux["alpha_full"] if phase.coarse
-                     else (aux["alpha_full"] > 0.5).to(torch.float32))
-        if "parsimony" in w:
-            losses["parsimony"] = (w["parsimony"] * coarse_f
-                                   * smean(safe_pow(alpha_sel, 0.5)))
-        if "tv" in w:
-            tv = self.tv_norm
-            bkg_m = aux["env_raw_maps"]["bkg"]
-            ground_m = aux["env_raw_maps"]["ground"]
-            tv_loss = (smean(tv(torch.diff(bkg_m, dim=-3)))
-                       + smean(tv(torch.diff(bkg_m, dim=-2))))
-            # all blocks' raw maps, seam-continuous along u (reference
-            # dbw.py:381-385)
-            bm = aux["raw_maps"]
-            dx = tv(torch.diff(bm, dim=-2, append=bm[..., 0:1, :]))
-            dy = tv(torch.diff(bm, dim=-3))
-            tv_loss = tv_loss + smean(dx.sum(-3)) + smean(dy.sum(-3))
-            # ground TV is factor-scaled inside and outside (reference
-            # dbw.py:386-387)
-            tv_loss = tv_loss + (smean(tv(torch.diff(ground_m, dim=-3)))
-                                 + smean(tv(torch.diff(ground_m, dim=-2)))) * factor
-            losses["tv"] = w["tv"] * factor * tv_loss
-        if "overlap" in w:
-            S, R, T = aux["S"], aux["R"], aux["T"]
-            N = self.n_blocks
-            if overlap_u is None:
-                overlap_u = torch.rand(lead + (N, OVERLAP_N_POINTS, 3),
-                                       generator=generator, device=self.device)
-            pts = overlap_u * 2.0 - 1.0
-            pts = (pts * self.ratio_block_scene * S[..., None, :]) @ R + T[..., None, :]
-            # every block's points against every block of the same slot
-            pts = pts.reshape(*lead, 1, -1, 3).detach().expand(*lead, N, -1, -1)
-            inv = ((pts - T[..., None, :]) @ R.transpose(-1, -2)) / (
-                S[..., None, :] * self.ratio_block_scene)
-            sdf = implicit_sq(inv, aux["eps1"], aux["eps2"], as_sdf=2)
-            occ = torch.sigmoid(-sdf / OVERLAP_TEMPERATURE) * alpha_sel[..., None]
-            overlap = smean(torch.clamp(occ.sum(-2) - OVERLAP_N_BLOCKS, min=0.0))
-            losses["overlap"] = w["overlap"] * coarse_f * overlap
-        losses["total"] = sum(losses.values())
+            with profiling.span("dbw.loss.vgg"):
+                losses["perceptual"] = profiling.mark(
+                    w["perceptual"] * factor
+                    * self.perceptual_loss(imgs, rec, slots=(lead or (None,))[0]),
+                    "dbw.loss.vgg")
+        with profiling.span("dbw.loss.other"):
+            alpha_sel = (aux["alpha_full"] if phase.coarse
+                         else (aux["alpha_full"] > 0.5).to(torch.float32))
+            if "parsimony" in w:
+                losses["parsimony"] = (w["parsimony"] * coarse_f
+                                       * smean(safe_pow(alpha_sel, 0.5)))
+            if "tv" in w:
+                tv = self.tv_norm
+                bkg_m = aux["env_raw_maps"]["bkg"]
+                ground_m = aux["env_raw_maps"]["ground"]
+                tv_loss = (smean(tv(torch.diff(bkg_m, dim=-3)))
+                           + smean(tv(torch.diff(bkg_m, dim=-2))))
+                # all blocks' raw maps, seam-continuous along u (reference
+                # dbw.py:381-385)
+                bm = aux["raw_maps"]
+                dx = tv(torch.diff(bm, dim=-2, append=bm[..., 0:1, :]))
+                dy = tv(torch.diff(bm, dim=-3))
+                tv_loss = tv_loss + smean(dx.sum(-3)) + smean(dy.sum(-3))
+                # ground TV is factor-scaled inside and outside (reference
+                # dbw.py:386-387)
+                tv_loss = tv_loss + (smean(tv(torch.diff(ground_m, dim=-3)))
+                                     + smean(tv(torch.diff(ground_m, dim=-2)))) * factor
+                losses["tv"] = w["tv"] * factor * tv_loss
+            if "overlap" in w:
+                S, R, T = aux["S"], aux["R"], aux["T"]
+                N = self.n_blocks
+                if overlap_u is None:
+                    overlap_u = torch.rand(lead + (N, OVERLAP_N_POINTS, 3),
+                                           generator=generator, device=self.device)
+                pts = overlap_u * 2.0 - 1.0
+                pts = (pts * self.ratio_block_scene * S[..., None, :]) @ R + T[..., None, :]
+                # every block's points against every block of the same slot
+                pts = pts.reshape(*lead, 1, -1, 3).detach().expand(*lead, N, -1, -1)
+                inv = ((pts - T[..., None, :]) @ R.transpose(-1, -2)) / (
+                    S[..., None, :] * self.ratio_block_scene)
+                sdf = implicit_sq(inv, aux["eps1"], aux["eps2"], as_sdf=2)
+                occ = torch.sigmoid(-sdf / OVERLAP_TEMPERATURE) * alpha_sel[..., None]
+                overlap = smean(torch.clamp(occ.sum(-2) - OVERLAP_N_BLOCKS, min=0.0))
+                losses["overlap"] = w["overlap"] * coarse_f * overlap
+            losses["total"] = profiling.mark(sum(losses.values()), "dbw.loss.other")
         return losses
 
     def forward(self, params, phase: Phase, imgs, R, T, generator=None,
@@ -693,13 +710,16 @@ class BlocksWorld:
         reconstruction to the full (B, H, W, 3) one that the cross-pixel
         losses need (across cards an all-gather over the bands and a crop),
         and the gradients flow back through it into the band's render."""
-        if opacity_noise is None:
-            opacity_noise = torch.randn(self.slot_shape(params) + (self.n_blocks,),
-                                        generator=generator, device=self.device)
-        rec, aux = self.predict(params, phase, R, T, noise=opacity_noise,
-                                row_range=row_range)
-        if rec_gather is not None:
-            rec = rec_gather(rec)
-        return self.compute_losses(imgs, rec, params, phase, aux,
-                                   overlap_u=overlap_u, generator=generator)
+        with profiling.span("dbw.forward"):
+            if opacity_noise is None:
+                with profiling.span("dbw.build"):
+                    opacity_noise = torch.randn(self.slot_shape(params) + (self.n_blocks,),
+                                                generator=generator, device=self.device)
+            rec, aux = self.predict(params, phase, R, T, noise=opacity_noise,
+                                    row_range=row_range)
+            if rec_gather is not None:
+                with profiling.span("dbw.blend"):
+                    rec = profiling.mark(rec_gather(rec), "dbw.blend")
+            return self.compute_losses(imgs, rec, params, phase, aux,
+                                       overlap_u=overlap_u, generator=generator)
 

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.dbw import OVERLAP_N_POINTS
+from ..utils import profiling
 
 
 def slot(x, s):
@@ -158,7 +159,10 @@ def batched_backward(model, params, phase, imgs, R, T, draws, band=None):
     sum: each slot's gradient lands in its slot of the stacked leaves.
     Returns the detached (S,) totals."""
     losses = model.forward(params, phase, imgs, R, T, **draws, **(band or {}))
-    losses["total"].sum().backward()
+    with profiling.span("dbw.loss.other"):
+        total = profiling.mark(losses["total"].sum(), "dbw.loss.other")
+    with profiling.span("dbw.backward"):
+        total.backward()
     return losses["total"].detach()
 
 
@@ -175,23 +179,31 @@ def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None,
     lead = model.slot_shape(params)
     if lead:
         S = lead[0]
-        return batched_backward(model, params, phase, imgs, R.repeat(S, 1, 1),
-                                T.repeat(S, 1), stack_draws(model, generator, draws), band)
+        with profiling.span("dbw.build"):
+            R, T = R.repeat(S, 1, 1), T.repeat(S, 1)
+            draws = stack_draws(model, generator, draws)
+        return batched_backward(model, params, phase, imgs, R, T, draws, band)
     losses = model.forward(params, phase, imgs, R, T, generator=generator,
                            **(draws or {}), **(band or {}))
-    losses["total"].backward()
+    with profiling.span("dbw.backward"):
+        losses["total"].backward()
     return losses["total"].detach()
 
 
 def adam_step(optimizer, params):
-    """The optimizer step over the stacked leaves. A leaf the step's losses
-    do not reach (alpha_logit in the fine phase) takes a zero gradient, so
-    that Adam still advances its moments, as optax does (the port
-    Trainer's rule)."""
+    """The optimizer step over the leaves (stacked, or the Trainer's). A
+    leaf the step's losses do not reach (alpha_logit in the fine phase)
+    takes a zero gradient, so that Adam still advances its moments, as
+    optax does, instead of skipping it. The leaf ``dbw.optimizer``."""
+    with profiling.span("dbw.optimizer"):
+        _zero_fill(params)
+        optimizer.step()
+
+
+def _zero_fill(params):
     for p in params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    optimizer.step()
 
 
 def seed_backward(model, params, phase, imgs, R, T, generators=None, draws=None,
@@ -219,13 +231,12 @@ def seed_step(model, params, optimizer, phase, imgs, R, T, generators=None,
 
 def mean_and_step(mesh, optimizer, params, losses):
     """The gradients in ``params`` and the ``losses`` averaged over the
-    mesh's seed column (one all_reduce), then the optimizer step. ->
-    ``losses``, averaged."""
-    for p in params.values():
-        if p.grad is None:  # the zero gradient adam_step would give it
-            p.grad = torch.zeros_like(p)
-    mesh.mean([p.grad for p in params.values()] + [losses])
-    adam_step(optimizer, params)
+    mesh's seed column (one all_reduce), then the optimizer step (the leaf
+    ``dbw.optimizer``). -> ``losses``, averaged."""
+    with profiling.span("dbw.optimizer"):
+        _zero_fill(params)  # the zero gradient adam_step would give it
+        mesh.mean([p.grad for p in params.values()] + [losses])
+        optimizer.step()
     return losses
 
 
@@ -284,11 +295,13 @@ class MultiSeedRunner:
 
     def step(self, params, phase, imgs, R, T, generators=None, draws=None):
         """One Adam step of this rank's slots on its views. Returns the
-        slots' (S_local,) total losses, averaged over the seed column."""
-        self.optimizer.zero_grad(set_to_none=True)
-        losses = seed_backward(self.model, params, phase, imgs, R, T, generators, draws,
-                               self.band)
-        return mean_and_step(self.mesh, self.optimizer, params, losses)
+        slots' (S_local,) total losses, averaged over the seed column (the
+        span ``dbw.step``)."""
+        with profiling.step():
+            self.optimizer.zero_grad(set_to_none=True)
+            losses = seed_backward(self.model, params, phase, imgs, R, T, generators, draws,
+                                   self.band)
+            return mean_and_step(self.mesh, self.optimizer, params, losses)
 
     def select_best(self, params, losses, n_valid=None):
         """Selection by the lowest train loss over every seed column's slots:

@@ -1,5 +1,6 @@
 """Training renderers: project -> select (K1) -> fragment stage -> quad
-texture sample -> layered blend.
+texture sample -> layered blend (the leaves ``dbw.raster``, ``dbw.shade``
+and ``dbw.blend`` of ``utils/profiling.py``).
 
 PyTorch port of the raw-shading training paths of
 dbw_tpu/render/renderer.py (``Renderer.render`` and both branches of
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.scatter import gather_rows_partial
+from ..utils import profiling
 from .blend import layered_blend
 from .cameras import Camera, ndc_pixel_centers
 from .fragment import (FragFlags, alpha_math, bary_uv, fused_fragment_shade,
@@ -124,20 +126,27 @@ class Renderer:
             raise ValueError("row_range: training renderers only (no supersampling)")
         hard = sigma is None and float(cfg.sigma) == 0.0
         sigma, blur = self.sigma_blur(sigma)
-        geom = project_faces(scene.verts, scene.faces, R, T, self.camera,
-                             z_clip=cfg.z_clip)
-        p2f = rasterize(geom, blur, cfg.raster_config(), hard=hard,
-                        row_range=row_range)
-        if cfg.shading == "raw":
-            img = self.shade(scene, geom, p2f, sigma,
-                             row0=0 if row_range is None else int(row_range[0]))
-        else:
-            img = self.shade_lit(scene, geom, p2f, R, sigma)
-        return _avg_pool_2d(img, cfg.supersample)
+        with profiling.span("dbw.raster"):
+            geom = project_faces(scene.verts, scene.faces, R, T, self.camera,
+                                 z_clip=cfg.z_clip)
+            p2f = rasterize(geom, blur, cfg.raster_config(), hard=hard,
+                            row_range=row_range)
+            geom = profiling.mark(geom, "dbw.raster")
+        with profiling.span("dbw.shade"):
+            if cfg.shading == "raw":
+                frags = self.shade(scene, geom, p2f, sigma,
+                                   row0=0 if row_range is None else int(row_range[0]))
+            else:
+                frags = self.shade_lit(scene, geom, p2f, R, sigma)
+            colors, alpha = profiling.mark(frags, "dbw.shade")
+        with profiling.span("dbw.blend"):
+            img = layered_blend(colors, alpha, cfg.background_color)
+            return profiling.mark(_avg_pool_2d(img, cfg.supersample), "dbw.blend")
 
     def shade(self, scene: MeshScene, geom, p2f, sigma, row0=0):
-        """Fragment stage + texture sample + blend for selected faces p2f
-        (B, Hb, W, K) of the (supersampled) image rows from ``row0``."""
+        """Fragment stage + texture sample for selected faces p2f (B, Hb, W,
+        K) of the (supersampled) image rows from ``row0`` -> the blend's
+        (colors (B, Hb, W, K, 3), alpha (B, Hb, W, K))."""
         cfg = self.config
         B, Hb, W, K = p2f.shape
         maps = scene.atlas.maps
@@ -168,16 +177,16 @@ class Renderer:
         if cfg.ambient_color is not None:
             colors = colors * torch.as_tensor(cfg.ambient_color,
                                               device=colors.device)
-        return layered_blend(colors.reshape(B, Hb, W, K, 3),
-                             alpha.reshape(B, Hb, W, K), cfg.background_color)
+        return colors.reshape(B, Hb, W, K, 3), alpha.reshape(B, Hb, W, K)
 
     def shade_lit(self, scene: MeshScene, geom, p2f, R, sigma):
         """flat / gouraud / phong shading of the selected faces p2f (B, H, W,
-        K) of the (supersampled) image, views R (B, 3, 3) -> RGBA (B, H, W,
-        4); B = S * B' views of a slot-batched scene. With the default
-        ambient light (1, 1, 1) every type leaves the texels unchanged. Only
-        the valid fragments are shaded: an empty slot has alpha 0 and takes
-        no gradient, as in the JAX package's dense stream."""
+        K) of the (supersampled) image, views R (B, 3, 3) -> the blend's
+        (colors (B, H, W, K, 3), alpha (B, H, W, K)); B = S * B' views of a
+        slot-batched scene. With the default ambient light (1, 1, 1) every
+        type leaves the texels unchanged. Only the valid fragments are
+        shaded: an empty slot has alpha 0 and takes no gradient, as in the
+        JAX package's dense stream."""
         cfg = self.config
         B, H, W, K = p2f.shape
         F = scene.faces.shape[0]
@@ -222,8 +231,7 @@ class Renderer:
         N = B * H * W * K
         dense = lambda v: torch.zeros((N,) + v.shape[1:], dtype=v.dtype,
                                       device=v.device).index_copy(0, sel, v)
-        return layered_blend(dense(colors * light).reshape(B, H, W, K, 3),
-                             dense(alpha).reshape(B, H, W, K), cfg.background_color)
+        return dense(colors * light).reshape(B, H, W, K, 3), dense(alpha).reshape(B, H, W, K)
 
     def _hard_select(self, scene: MeshScene, R, T):
         """Projected faces and the front face per (supersampled) pixel:

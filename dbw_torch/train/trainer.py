@@ -38,7 +38,9 @@ import torch
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..models import create_model
+from ..parallel.seeds import adam_step
 from ..render.trajectory import to_u8
+from ..utils import profiling
 from ..utils.colors import fancy_colormap
 from ..utils.config import dump_yaml, load_yaml
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -124,9 +126,13 @@ def _pad_ids(ids, batch_size):
 
 
 def gather_views(dataset, idx, device):
-    """The views ``idx`` of a dataset as (imgs, R, T) tensors on ``device``."""
-    return tuple(torch.from_numpy(a[idx]).to(device, non_blocking=True)
-                 for a in (dataset.imgs, dataset.R, dataset.T))
+    """The views ``idx`` of a dataset as (imgs, R, T) tensors on ``device``
+    (the leaf ``dbw.gather``, which counts the bytes copied to a card)."""
+    with profiling.span("dbw.gather"):
+        host = [a[idx] for a in (dataset.imgs, dataset.R, dataset.T)]
+        if torch.device(device).type != "cpu":
+            profiling.count("h2d_bytes", sum(a.nbytes for a in host))
+        return tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in host)
 
 
 class Trainer:
@@ -262,27 +268,24 @@ class Trainer:
         return self._epoch_consts_cache[1], self._epoch_consts_cache[2]
 
     def _train_step(self, ids):
-        """One Adam step on the views ``ids``."""
-        idx, n_real = _pad_ids(ids, self.batch_size)
-        phase, _ = self._epoch_consts()
-        imgs, R, T = gather_views(self.dataset, idx, self.device)
-        gen = torch.Generator(device=self.device).manual_seed(
-            step_seed(self.seed, self._step_ctr))
-        self._step_ctr += 1
-        self.optimizer.zero_grad(set_to_none=True)
-        losses = self.model.forward(self.params, phase, imgs, R, T, generator=gen)
-        losses["total"].backward()
-        for p in self.params.values():
-            # a leaf the step's losses do not reach (alpha_logit in the fine
-            # phase) takes a zero gradient, so that Adam still advances its
-            # moments, as optax does, instead of skipping it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.optimizer.step()
-        # no sync here: the losses stay on the device until the log interval
-        self._loss_buffer.append(
-            (torch.stack([losses[k].detach() for k in self._loss_keys]), n_real))
-        self._window_imgs += n_real
+        """One Adam step on the views ``ids`` (the span ``dbw.step``)."""
+        with profiling.step():
+            idx, n_real = _pad_ids(ids, self.batch_size)
+            phase, _ = self._epoch_consts()
+            imgs, R, T = gather_views(self.dataset, idx, self.device)
+            gen = torch.Generator(device=self.device).manual_seed(
+                step_seed(self.seed, self._step_ctr))
+            self._step_ctr += 1
+            self.optimizer.zero_grad(set_to_none=True)
+            losses = self.model.forward(self.params, phase, imgs, R, T, generator=gen)
+            with profiling.span("dbw.backward"):
+                losses["total"].backward()
+            adam_step(self.optimizer, self.params)
+            # no sync here: the losses stay on the device until the log interval
+            with profiling.span("dbw.loss.other"):
+                self._loss_buffer.append(
+                    (torch.stack([losses[k].detach() for k in self._loss_keys]), n_real))
+            self._window_imgs += n_real
 
     def run_single_batch_train(self, ids):
         self._train_step(ids)
