@@ -10,11 +10,13 @@ Phases, one line each (or a few):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes of every path that launches it (the blocks and env
    passes of the main path, the joint path's one scene, K3 also at the
-   band path's), with both times (CUDA events around runs of 20 calls),
-   K3's and K5's device time per launch from a profiler trace, the
-   kernel's bound (the larger of its bytes over the card's memory rate and
-   its operations over the float32 rate) and, for K4 and K5, the time of
-   one PyTorch ``index_add_`` that computes the same sums;
+   band path's; the blend's pair K6 at the blocks and env passes' K on
+   seeded colours and alphas with exact 0s and 1s), with both times (CUDA
+   events around runs of 20 calls), K3's, K5's and K6's device time per
+   launch from a profiler trace, the kernel's bound (the larger of its
+   bytes over the card's memory rate and its operations over the float32
+   rate) and, for K4 and K5, the time of one PyTorch ``index_add_`` that
+   computes the same sums;
 4. main path: configs/synthetic/dtu_shaped.yml as shipped (decoupled env
    pass, 300x400, 4 views, K=10, 10 blocks, 256 texels, the VGG16
    features in their bfloat16 default) takes 10 Adam steps; every kernel
@@ -92,12 +94,12 @@ Phases, one line each (or a few):
 13. lit: the shipped config at full width with only the renderer's
    shading_type (flat, gouraud, phong), lights (directional, point) and
    cameras (fov) overridden takes 3 Adam steps of each lit type: finite
-   losses, K1 (soft and hard) and K4 launched in every step and no other
-   kernel (the lit path interpolates in tensor code, as the JAX package
-   does); K1 and K4 against their plain twins at the lit path's shapes
-   (blocks pass: K1 soft slot for slot, K4; env pass: K1 hard, K4; K4 on
-   the valid fragments, which are all that the lit path shades) and a
-   profiler trace of the phong step;
+   losses, K1 (soft and hard), K4 and the blend (K6) launched in every
+   step and no other kernel (the lit path interpolates in tensor code, as
+   the JAX package does); K1 and K4 against their plain twins at the lit
+   path's shapes (blocks pass: K1 soft slot for slot, K4; env pass: K1
+   hard, K4; K4 on the valid fragments, which are all that the lit path
+   shades) and a profiler trace of the phong step;
    then 3 steps with each of the six other optimizers, 2 steps with each
    RGB criterion, and a model.pkl resume of adamw that reproduces the next
    step;
@@ -138,9 +140,10 @@ Phases, one line each (or a few):
    steps in calls of 5 after a warm-up until two calls agree within 10%)
    in its own process at 10 and at 50 blocks, each JSON line printed on a
    line of its own: it must exit 0 on the card with finite numbers and
-   launch K1, K1-hard, K2, K3 and K5 once and K4 twice a step. K1 (soft,
-   every slot equal), K2, K3 and K4 against their plain twins on the
-   blocks pass at 50 blocks (4,000 faces); the trace twin
+   launch K1, K1-hard, K2, K3 and K5 once and K4, K6's forward and K6's
+   backward twice a step. K1 (soft, every slot equal), K2, K3 and K4
+   against their plain twins on the blocks pass at 50 blocks (4,000
+   faces); the trace twin
    (scripts/torch_trace_bench.py) of the bench step at both widths: its
    top 10 device ops and the blend's scans' share of device time; the
    requant twin (scripts/torch_requant_run.py) on phase 8's model.pkl and
@@ -204,6 +207,9 @@ SOURCES = {
                       "dbw_tpu/ops/segment_sum_pallas.py:54"),
     "K5_small_scatter": ("dbw_torch/csrc/scatter.cu",
                          "dbw_tpu/ops/segment_sum_pallas.py:169"),
+    # no TPU kernel: the JAX blend is XLA's cumprod
+    "K6_blend_fwd": ("dbw_torch/csrc/blend.cu", "dbw_tpu/render/blend.py:40 (XLA)"),
+    "K6_blend_bwd": ("dbw_torch/csrc/blend.cu", "dbw_tpu/render/blend.py:40 (XLA)"),
 }
 # the kernels of the training step (the main path's); the viz and eval
 # renders add K1_select_hard_ss, the hard selection at 4x supersampling
@@ -256,11 +262,12 @@ SCENE_DATASET_SEEDS = (3, 5)
 SCENES_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20)
 # the lit phase: the shipped config with the renderer's shading_type, lights
 # and cameras overridden; 3 steps of each (shading, light) case. The lit path
-# launches K1 (soft blocks, hard env) and K4 only
+# launches K1 (soft blocks, hard env), K4 and the blend (K6) only
 LIT_CASES = (("flat", "directional"), ("gouraud", "point"), ("phong", "directional"))
 LIT_LIGHTS = {"directional": dict(name="directional", direction=[[1.0, 0.25, -1.0]]),
               "point": dict(name="point", location=[[0.5, 2.0, -2.5]])}
-LIT_KERNELS = ("K1_select", "K1_select_hard", "K4_texel_grad")
+LIT_KERNELS = ("K1_select", "K1_select_hard", "K4_texel_grad", "K6_blend_fwd",
+               "K6_blend_bwd")
 N_LIT_STEPS = 3
 OTHER_OPTIMIZERS = ("sgd", "adamw", "adamax", "rmsprop", "adagrad", "adadelta")
 CRITERIA = ("bce", "mse", "l2", "l1", "huber", "perceptual", "lpips", "ssim")
@@ -292,7 +299,8 @@ N_F32_STEPS = 6
 NN_POINTS = 20_000
 NN_TIE_REL = 1e-5
 # kernels of the joint-rendering path (no env pass)
-JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad")
+JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad",
+                 "K6_blend_fwd", "K6_blend_bwd")
 # kernels of the backward, held against their plain twins in the band phase
 BACKWARD_KERNELS = ("K3_frag_bwd", "K4_texel_grad", "K5_small_scatter")
 # the pixel bands of the band phase: (row0, Hb) of 2 and of 3 bands
@@ -303,14 +311,16 @@ BAND_SPLITS = {"2 bands": ((0, 150), (150, 150)),
 # float32 rate of one H100 SXM (NVIDIA's data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# floating-point operations per fragment (K2, K3, K4) or row (K5), counted
-# from the expressions of csrc/fragment.cu, texel.cu and scatter.cu; K1's
-# per pixel-face pair is rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
+# floating-point operations per fragment (K2, K3, K4), row (K5) or pixel
+# slot (K6), counted from the expressions of csrc/fragment.cu, texel.cu,
+# scatter.cu and blend.cu; K1's per pixel-face pair is
+# rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
 FLOPS_PER_ITEM = {"K2_frag_fwd": 140, "K3_frag_bwd": 260, "K4_texel_grad": 32,
-                  "K5_small_scatter": 12}
+                  "K5_small_scatter": 12, "K6_blend_fwd": 9, "K6_blend_bwd": 28}
 # kernels whose device time per launch phase 3 also reads from a profiler
 # trace, by the name of their device kernel
-DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel"}
+DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel",
+                  "K6_blend_fwd": "blend_fwd_kernel", "K6_blend_bwd": "blend_bwd_kernel"}
 # the mesh phase: MESH_RANKS ranks on card 0 under gloo (NCCL refuses two
 # ranks on one device). Each layout takes MESH_STEPS Adam steps of seed
 # MESH_SEED on the main path's inputs; the 5-seed protocol takes its
@@ -336,7 +346,8 @@ BENCH_ARGS = ("--steps", "20", "--steps-per-call", "5", "--max-warmup-calls", "1
 BENCH_BLOCKS = (10, 50)
 BENCH_TIMEOUT_S = 300
 BENCH_STEP_LAUNCHES = {"K1_select": 1, "K1_select_hard": 1, "K2_frag_fwd": 1,
-                       "K3_frag_bwd": 1, "K4_texel_grad": 2, "K5_small_scatter": 1}
+                       "K3_frag_bwd": 1, "K4_texel_grad": 2, "K5_small_scatter": 1,
+                       "K6_blend_fwd": 2, "K6_blend_bwd": 2}
 # the bench trace (scripts/torch_trace_bench.py): steps traced, ops listed
 N_TRACE_STEPS = 3
 TRACE_TOP = 10
@@ -722,6 +733,60 @@ def check_env_pass(checks, model, params, phase, R, T, gen, path="env pass", pla
            plain_runs=plain_runs)
 
 
+def check_blend(checks, model, B, gen, prefix="", plain_runs=20):
+    """K6's forward and backward against the plain twin on B views of the
+    image at the blocks pass's K and the env pass's (1), with each
+    renderer's background: colours and alphas from ``gen``, a fifth of the
+    alphas exactly 0 and a fifth exactly 1. The forward within 1e-6 of the
+    plain twin's max (its scans' order against the kernel's serial loop),
+    the backward within 1e-5 of the max of the plain twin's autograd in
+    float64; the plain backward is timed as autograd over a kept graph."""
+    from dbw_torch.render import blend
+
+    dev = gen.device
+    with torch.enable_grad():
+        for path, rend in (("blocks pass", model.renderer), ("env pass", model.renderer_env)):
+            K = rend.config.faces_per_pixel
+            bg = blend._background(rend.config.background_color)
+            shape = (B,) + IMG_SIZE
+            colors = torch.rand(shape + (K, 3), generator=gen, device=dev)
+            u = torch.rand(shape + (K,), generator=gen, device=dev)
+            alpha = torch.rand(shape + (K,), generator=gen, device=dev)
+            alpha = torch.where(u < 0.2, 0.0, torch.where(u > 0.8, 1.0, alpha))
+            g = torch.randn(shape + (4,), generator=gen, device=dev)
+            n = alpha.numel()
+            label = f"[{prefix}{path}, P={n // K}, K={K}, background {bg}]"
+            out = blend.layered_blend_fwd_cuda(colors, alpha, bg)
+            err_f, ok_f = check_close(
+                f"K6 blend forward {label}: RGBA", out,
+                blend.layered_blend_plain(colors, alpha, bg), 1e-6,
+                note="the plain twin's scans against a serial loop")
+            d_c, d_a = blend.layered_blend_bwd_cuda(colors, alpha, g, bg)
+            c64, a64 = (t.double().requires_grad_(True) for t in (colors, alpha))
+            r_c, r_a = torch.autograd.grad(blend.layered_blend_plain(c64, a64, bg),
+                                           (c64, a64), g.double())
+            note = "against the plain twin in float64"
+            err_c, ok_c = check_close(f"K6 blend backward {label}: d_colors",
+                                      d_c.double(), r_c, 1e-5, note=note)
+            err_a, ok_a = check_close(f"K6 blend backward {label}: d_alpha",
+                                      d_a.double(), r_a, 1e-5, note=note)
+            del c64, a64, r_c, r_a
+            record(checks, "K6_blend_fwd", prefix + path, err_f, ok_f,
+                   lambda: blend.layered_blend_fwd_cuda(colors, alpha, bg),
+                   lambda: blend.layered_blend_plain(colors, alpha, bg),
+                   bound(nbytes(colors, alpha, out), n * FLOPS_PER_ITEM["K6_blend_fwd"],
+                         items=n), plain_runs=plain_runs)
+            c32, a32 = (t.clone().requires_grad_(True) for t in (colors, alpha))
+            graph = blend.layered_blend_plain(c32, a32, bg)
+            record(checks, "K6_blend_bwd", prefix + path, max(err_c, err_a), ok_c and ok_a,
+                   lambda: blend.layered_blend_bwd_cuda(colors, alpha, g, bg),
+                   lambda: torch.autograd.grad(graph, (c32, a32), g, retain_graph=True),
+                   bound(nbytes(colors, alpha, g, d_c, d_a),
+                         n * FLOPS_PER_ITEM["K6_blend_bwd"], items=n),
+                   plain_runs=plain_runs)
+            del colors, alpha, g, out, d_c, d_a, c32, a32, graph
+
+
 def check_viz_selection(checks, model, params, R, T):
     """K1-hard at 4x supersampling, at the shapes of the viz and eval
     renders: the eval scene (dome, ground and blocks, 1,248 faces: the
@@ -786,6 +851,7 @@ def phase_kernels(model, device):
         blocks, _ = model.build_blocks(params, phase, noise=noise)
         check_soft_pass(checks, "blocks pass", model, blocks, phase, R, T, gen)
         check_env_pass(checks, model, params, phase, R, T, gen)
+        check_blend(checks, model, N_VIEWS, gen)
         joint, _, _ = model.build_scene(params, phase, noise=noise)
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
         check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
@@ -931,7 +997,8 @@ KERNEL_FAMILIES = {
                     "region_transform"),
     "scan (cumprod blend)": ("scan",),
     "hand-written": ("select_kernel", "frag_fwd_kernel", "frag_bwd_kernel",
-                     "texel_grad_kernel", "small_scatter_kernel"),
+                     "texel_grad_kernel", "small_scatter_kernel", "blend_fwd_kernel",
+                     "blend_bwd_kernel"),
 }
 
 
@@ -1939,6 +2006,7 @@ def check_batched_kernels(cfg, device):
                         plain_runs=1)
         check_env_pass(checks, model, params, phase, R, T, gen, path="protocol env pass",
                        plain_runs=1)
+        check_blend(checks, model, S * N_VIEWS, gen, prefix="protocol ", plain_runs=1)
     del model, params, blocks
     torch.cuda.empty_cache()
     report_checks("protocol", checks)
@@ -2772,7 +2840,8 @@ def trace_shares(n_blocks, device):
     shares = family_shares({n: ms for n, (ms, _) in ops.items()})
     say("trace", f"{n_blocks} blocks: {total / N_TRACE_STEPS:.3f} ms of device time a "
         "step; shares: " + ", ".join(f"{fam} {v:.3f}" for fam, v in shares.items())
-        + " (the blend's scans: 0.300 of the shipped step's device time, PERF.md §5)")
+        + " (the scans were the blend's cumprod before K6, 0.300 of the shipped step's "
+        "device time)")
     return dict(device_ms_per_step=total / N_TRACE_STEPS, **shares)
 
 

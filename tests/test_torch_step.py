@@ -222,7 +222,7 @@ def test_decoupled_fine_phase_step_matches(runs_decoupled):
 def _route_to_plain_twins(monkeypatch):
     """Send every kernel's dispatcher to its plain twin, CUDA tensors too."""
     from dbw_torch.ops import scatter, texel_grad
-    from dbw_torch.render import fragment, meshes, rasterize, renderer
+    from dbw_torch.render import blend, fragment, meshes, rasterize, renderer
 
     def rasterize_plain(geom, blur, cfg, hard=False, row_range=None):
         return rasterize.rasterize_plain(rasterize.pack_faces(geom), blur, cfg,
@@ -236,6 +236,7 @@ def _route_to_plain_twins(monkeypatch):
                         lambda *a: texel_grad.quad_maps_grad_plain(*a[:-1]))
     monkeypatch.setattr(scatter, "small_table_scatter_add",
                         scatter.small_table_scatter_add_plain)
+    monkeypatch.setattr(renderer, "layered_blend", blend.layered_blend_plain)
 
 
 @pytest.mark.cuda
