@@ -33,7 +33,7 @@ from bisect import bisect_right
 import numpy as np
 import torch
 
-from .scan import read_scan
+from . import scan
 
 TEXTURE_PARAM_NAMES = ("texture_bkg", "texture_ground", "textures")
 NEGLIGIBLE = 1e-3
@@ -71,8 +71,8 @@ def reference_model(cfg, config, scan_dir, device):
     T) of every view on the device)."""
     from .reference.dbwref.models.dbw import BlocksWorld
 
-    img_size = tuple(cfg["dataset"]["img_size"])
-    imgs, K, R, T = read_scan(scan_dir, img_size, tuple(config["scan"]["raw_size"]))
+    img_size = scan.render_size(config)
+    imgs, K, R, T = scan.read(config, scan_dir)
     kw = dict(cfg["model"])
     kw.pop("name")
     model = BlocksWorld(img_size, device=device, **kw)

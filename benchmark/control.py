@@ -37,9 +37,7 @@ def readings(workload, seed, tmp, device="cuda", root=ROOT / "benchmark"):
     from benchmark import check, harness, scan
 
     cell, config, traffic = harness.load_cell(workload, root)
-    sc = config["scan"]
-    scan_dir = scan.write_scan(tmp / "scans", config["config"]["dataset"]["tag"], seed,
-                               sc["n_views"], tuple(sc["write_size"]), tuple(sc["raw_size"]))
+    scan_dir = scan.write(config, tmp / "scans", seed)
     cfg = harness.program_config(config, traffic, seed, tmp / "scans", root)
     loop = harness.make_loop(cfg, tmp / "run", traffic, harness.Spans(), device, root)
     prog = loop.first_steps()

@@ -4,9 +4,10 @@
 
 One process a run, from the root of a checkout. It finds the card (no
 card, or fewer than the cell asks for: exit 3, no result), writes the
-cell's scan from ``--seed`` under TMPDIR, builds the program on it (the
-kernels build once per checkout into ``.dbw_torch_build/``), runs the
-traffic's first steps and warms its interval work (set-up), measures for
+cell's scan from ``--seed`` under TMPDIR in its configuration's layout
+(``scan.py``), builds the program on it (the kernels build once per
+checkout into ``.dbw_torch_build/``), runs the traffic's first steps and
+warms its interval work (set-up), measures for
 ``--seconds`` (``--trace 1``: with the profiler over a steady part), then
 checks the first steps against the plain reference (``check.py``) and
 prints one JSON line: ``correct``, ``attempted``, ``failed``, ``metrics``
@@ -124,10 +125,8 @@ def run(args, tmp, root, device="cuda"):
     from benchmark.tracer import Tracer
 
     cell, config, traffic = harness.load_cell(args.workload, root)
-    sc = config["scan"]
     scan_root = tmp / "scans"
-    scan_dir = scan.write_scan(scan_root, config["config"]["dataset"]["tag"], args.seed,
-                               sc["n_views"], tuple(sc["write_size"]), tuple(sc["raw_size"]))
+    scan_dir = scan.write(config, scan_root, args.seed)
     cfg = harness.program_config(config, traffic, args.seed, scan_root, root)
     spans = harness.Spans()
     loop = harness.make_loop(cfg, tmp / "run", traffic, spans, device, root)

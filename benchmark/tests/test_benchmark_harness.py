@@ -1,8 +1,9 @@
 """The harness on the CPU: its arithmetic (the idle-share union, the
 all-window rate, the readers, the byte and operation counts on
 hand-worked shapes), a toy cell added as files only and run by name for
-each traffic, the faults that ``correct`` has to catch, and the check that
-nothing a run loads is of the JAX side of the repository."""
+each traffic and each scan layout, the faults that ``correct`` has to
+catch, and the check that nothing a run loads is of the JAX side of the
+repository."""
 
 import json
 import subprocess
@@ -87,9 +88,7 @@ def test_step_counts_record_every_kernel(tmp_path):
     cell, config, traffic = harness.load_cell(args.workload, root)
     from benchmark import scan
 
-    sc = config["scan"]
-    d = scan.write_scan(tmp_path / "scans", "scan24", 3, sc["n_views"],
-                        tuple(sc["write_size"]), tuple(sc["raw_size"]))
+    d = scan.write(config, tmp_path / "scans", 3)
     cfg = harness.program_config(config, traffic, 3, tmp_path / "scans")
     model, (imgs, R, T) = check.reference_model(cfg, config, d, "cpu")
     params = model.init_params(seed=3)
@@ -127,8 +126,8 @@ def test_window_rate_is_over_all_of_it():
     assert 0.2 <= window_s <= time.perf_counter() - t0
 
 
-def run_toy(tmp_path, mix, patch=None):
-    root, args = write_toy(tmp_path / "root", mix)
+def run_toy(tmp_path, mix, patch=None, layout="idr"):
+    root, args = write_toy(tmp_path / "root", mix, layout)
     if patch is not None:
         make = harness.make_loop
 
@@ -145,9 +144,10 @@ def run_toy(tmp_path, mix, patch=None):
     return args, res
 
 
+@pytest.mark.parametrize("layout", ["idr", "nerfstudio"])
 @pytest.mark.parametrize("mix", ["fit", "protocol5"])
-def test_toy_cell_found_and_run_by_name(tmp_path, mix):
-    args, res = run_toy(tmp_path, mix)
+def test_toy_cell_found_and_run_by_name(tmp_path, mix, layout):
+    args, res = run_toy(tmp_path, mix, layout=layout)
     assert res["correct"], res["checks"]
     rate = {"fit": "fit_steps_per_s", "protocol5": "protocol_seed_steps_per_s"}[mix]
     assert set(res["metrics"]) == {rate, "setup_s"}
@@ -195,10 +195,11 @@ def altered_render(loop):
     model.predict = fault
 
 
+@pytest.mark.parametrize("layout", ["idr", "nerfstudio"])
 @pytest.mark.parametrize("mix", ["fit", "protocol5"])
 @pytest.mark.parametrize("fault", [unchanged_state, half_batch, altered_render])
-def test_faults_come_out_incorrect(tmp_path, mix, fault):
-    _, res = run_toy(tmp_path, mix, patch=fault)
+def test_faults_come_out_incorrect(tmp_path, mix, fault, layout):
+    _, res = run_toy(tmp_path, mix, patch=fault, layout=layout)
     assert not res["correct"], res["checks"]
 
 
@@ -338,6 +339,10 @@ class SnapTracer(FakeTracer):
 def test_counts_are_of_the_traced_steps(tmp_path, monkeypatch):
     monkeypatch.setattr("benchmark.tracer.Tracer", SnapTracer)
     root, args = write_toy(tmp_path / "root", "fit")
+    # two first steps, so that the window's first unit is a full group of
+    # two steps: the traced steps are then done however slow the CPU is
+    traffic = json.loads((root / "traffic" / "fit.json").read_text())
+    (root / "traffic" / "fit.json").write_text(json.dumps({**traffic, "first_steps": 2}))
     args.trace = 1
     res = run.run(args, tmp_path / "tmp", root, device="cpu")
     counts = res["_readings"]["counts"]
