@@ -61,8 +61,20 @@ order of the forward's marked leaves, a run of one name making one leaf.
 A backward outside a ``dbw.backward`` span records no leaves.
 
 Counters of a step: ``h2d_bytes`` (the bytes ``dbw.gather`` copies to a
-card) and ``launches.<kernel>``, the step's change of
-``dbw_torch.kernels.LAUNCHES``.
+card), ``launches.<kernel>``, the step's change of
+``dbw_torch.kernels.LAUNCHES``, and on a card the device memory that the
+forward holds: ``mem.held_bytes.<leaf>``, the bytes allocated on the card
+when a forward leaf (one that opens in the step before its
+``dbw.backward``) closes less when it opened, summed over the leaf's
+spans, and ``mem.held_bytes``, the same from the open of ``dbw.step`` to
+the open of ``dbw.backward``: the step's growth by then, which bounds
+how many slots a card batches. The leaves sum to more than the step:
+what a leaf's caller frees after its close (temporaries dropped when a
+function returns) and the last step's gradients (freed by ``zero_grad``
+before the forward) count in the step and not in the leaves. Each reading
+is taken inside its span, from the caching allocator's counters
+(``_allocated``): no device sync, and the peak statistics are left as
+they are.
 
     with profiling.recording():
         trainer.run()
@@ -115,6 +127,15 @@ class Span:
         return 1e3 * (self.host1 - self.host0)
 
 
+def _allocated():
+    """The bytes the caching allocator has handed out on the current card,
+    read from its counters (no device sync), or None before CUDA is
+    initialized."""
+    if not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.memory_stats_as_nested_dict()["allocated_bytes"]["all"]["current"]
+
+
 def _event():
     if not torch.cuda.is_initialized():
         return None
@@ -133,6 +154,7 @@ class _Recorder:
         self.counters = {}          # step ordinal (or None) -> {name: value}
         self.n_steps = 0            # dbw.step spans opened
         self.cur_step = None        # the open dbw.step's ordinal
+        self.step_mem = None        # card bytes at the step's open, till dbw.backward
         self.bwd = None             # [dbw.backward's index, open backward leaf]
         self.last_mark = None       # the backward leaf of the latest mark
         self.resolved = 0           # spans before this index hold no event
@@ -163,9 +185,17 @@ class _Recorder:
         if name == "dbw.backward":
             self.bwd = [i, None]
             self.enter_backward(self.last_mark)
+        mem0 = None
+        if self.step_mem is not None and name == "dbw.backward":
+            self.count("mem.held_bytes", _allocated() - self.step_mem)
+            self.step_mem = None
+        elif self.step_mem is not None and name in LEAVES:
+            mem0 = _allocated()
         try:
             yield
         finally:
+            if mem0 is not None:
+                self.count("mem.held_bytes." + name, _allocated() - mem0)
             if name == "dbw.backward":
                 self.enter_backward(None)
                 self.bwd = outer_bwd
@@ -181,11 +211,12 @@ class _Recorder:
         before = dict(kernels.LAUNCHES)
         self.cur_step = ordinal = self.n_steps
         self.n_steps += 1
+        self.step_mem = _allocated()
         try:
             with self.span("dbw.step"):
                 yield
         finally:
-            self.cur_step = None
+            self.cur_step = self.step_mem = None
             c = self.counters.setdefault(ordinal, {})
             for k, v in kernels.LAUNCHES.items():
                 c["launches." + k] = c.get("launches." + k, 0) + v - before.get(k, 0)

@@ -12,13 +12,20 @@ loss stack (the perceptual term at relu3_3).
 - the losses, gradients and parameters after a step are bitwise those of
   the step with recording off;
 - the seven per-layer readers of ``benchmark/metrics`` read None without
-  records and the per-step sums of a hand-made record set.
+  records and the per-step sums of a hand-made record set;
+- the memory counters, with the allocator's reading replaced by a count
+  of reads: none off, and on one a forward leaf and one for the step up
+  to ``dbw.backward``; ``forward_held_gb.protocol`` reads None without
+  them and their mean over steps in GB.
 
 On a card (``cuda``): each leaf's stream ms is positive and the leaves
-cover at least 95% of ``dbw.step``'s stream ms."""
+cover at least 95% of ``dbw.step``'s stream ms; the memory counters are
+positive, the step's at most its leaves' sum, and recording them calls
+no synchronize and leaves the peak statistics as they were."""
 
 import copy
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
@@ -353,6 +360,104 @@ def test_off_is_a_shared_no_op():
     assert profiling.mark(x, "dbw.build") is x
     profiling.count("h2d_bytes", 5)
     assert profiling.records() == ([], {})
+
+
+# the forward leaves of each step, by how many spans of each it opens
+# before its dbw.backward
+FORWARD_LEAVES = {
+    "trainer": {"dbw.gather": 1, "dbw.build": 3, "dbw.raster": 2, "dbw.shade": 2,
+                "dbw.blend": 3, "dbw.loss.other": 2, "dbw.loss.vgg": 1},
+    "batched": {"dbw.build": 3, "dbw.raster": 2, "dbw.shade": 2, "dbw.blend": 3,
+                "dbw.loss.other": 3, "dbw.loss.vgg": 1},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(STEPS))
+def test_memory_counters_by_forward_leaf(kind, tmp_path, monkeypatch):
+    """With the allocator's reading replaced by one that grows by 1,000
+    bytes a read: off, no read and no ``mem.*`` counter; on, each forward
+    leaf's counter is 1,000 a span (one read at its open, one at its close),
+    and the step's is 1,000 a read from the step's open to dbw.backward's,
+    two a forward leaf's span and one more; nothing after dbw.backward."""
+    reads = {"n": 0}
+
+    def fake():
+        reads["n"] += 1
+        return 1000 * reads["n"]
+
+    monkeypatch.setattr(profiling, "_allocated", fake)
+    fn, args = STEPS[kind](tmp_path)
+    fn(*args)
+    assert reads["n"] == 0 and profiling.records() == ([], {})
+    with profiling.recording():
+        for _ in range(2):
+            fn(*args)
+    for r in profiling.summary():
+        mem = {k: v for k, v in r["counters"].items() if k.startswith("mem.")}
+        want = {"mem.held_bytes." + n: 1000 * c for n, c in FORWARD_LEAVES[kind].items()}
+        want["mem.held_bytes"] = 1000 * (2 * sum(FORWARD_LEAVES[kind].values()) + 1)
+        assert mem == want
+
+
+def test_forward_held_reader():
+    read = _reader("forward_held_gb.protocol")
+    assert read(None) is None
+    rec = profiling._REC
+    rec.counters = {0: {"launches.K1_select": 1}}
+    assert read(None) is None
+    rec.counters = {0: {"mem.held_bytes": 2e9, "mem.held_bytes.dbw.shade": 1e9},
+                    1: {"mem.held_bytes": 4e9}, None: {"mem.held_bytes": 100e9}}
+    assert read(None) == pytest.approx(3.0)
+
+
+@pytest.mark.cuda
+def test_cuda_memory_counters(tmp_path, monkeypatch):
+    """On a card: the Trainer step and the batched step under recording,
+    every memory counter positive, the step's at most the forward leaves'
+    sum (what is freed outside them counts in the step alone); recording
+    calls neither ``torch.cuda.synchronize`` nor ``reset_peak_memory_stats``
+    during the steps, and leaves the peak statistics as they were (a peak
+    set before, above the steps', stays)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    t = _trainer(tmp_path, device="cuda")
+    runner, p, views = _runner(device="cuda")
+    for fn, args in ((_trainer_step, (t,)), (_runner_step, (runner, p, views))):
+        fn(*args)   # warm: Adam's state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        big = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+        del big
+        peak = torch.cuda.max_memory_allocated()
+        assert peak >= 2**30
+        profiling.reset()
+        calls = []
+
+        def counted(name, real):
+            def call(*a, **kw):
+                calls.append(name)
+                return real(*a, **kw)
+            return call
+
+        with monkeypatch.context() as m:
+            for name in ("synchronize", "reset_peak_memory_stats"):
+                m.setattr(torch.cuda, name, counted(name, getattr(torch.cuda, name)))
+            with profiling.recording():
+                for _ in range(3):
+                    fn(*args)
+        assert calls == []
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() == peak
+        for r in profiling.summary():
+            mem = {k: v for k, v in r["counters"].items() if k.startswith("mem.")}
+            leaves = {k: v for k, v in mem.items() if k != "mem.held_bytes"}
+            print(fn.__name__, r["step"], mem)
+            assert leaves and all(v > 0 for v in mem.values()), mem
+            assert mem["mem.held_bytes"] <= sum(leaves.values()), mem
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        profiling._allocated()
+    print(f"one read of the allocator's counters: {(time.perf_counter() - t0) * 1e3:.2f} us")
 
 
 @pytest.mark.cuda
