@@ -11,9 +11,11 @@ Phases, one line each (or a few):
    the flagship shapes of every path that launches it (the blocks and env
    passes of the main path, the joint path's one scene, K3 also at the
    band path's; the blend's pair K6 at the blocks and env passes' K on
-   seeded colours and alphas with exact 0s and 1s), with both times (CUDA
-   events around runs of 20 calls), K3's, K5's and K6's device time per
-   launch from a profiler trace, the kernel's bound (the larger of its
+   seeded colours and alphas with exact 0s and 1s; the LPIPS pair K7 at the
+   five VGG16 slice shapes of each benchmark cell's views, 20 renders
+   against 4 targets), with both times (CUDA events around runs of 20
+   calls), K3's, K5's, K6's and K7's device time per launch from a
+   profiler trace, the kernel's bound (the larger of its
    bytes over the card's memory rate and its operations over the float32
    rate) and, for K4 and K5, the time of one PyTorch ``index_add_`` that
    computes the same sums;
@@ -210,6 +212,9 @@ SOURCES = {
     # no TPU kernel: the JAX blend is XLA's cumprod
     "K6_blend_fwd": ("dbw_torch/csrc/blend.cu", "dbw_tpu/render/blend.py:40 (XLA)"),
     "K6_blend_bwd": ("dbw_torch/csrc/blend.cu", "dbw_tpu/render/blend.py:40 (XLA)"),
+    # no TPU kernel: the JAX LPIPS distance is XLA's
+    "K7_lpips_fwd": ("dbw_torch/csrc/lpips.cu", "dbw_tpu/losses/vgg.py:231 (XLA)"),
+    "K7_lpips_bwd": ("dbw_torch/csrc/lpips.cu", "dbw_tpu/losses/vgg.py:231 (XLA)"),
 }
 # the kernels of the training step (the main path's); the viz and eval
 # renders add K1_select_hard_ss, the hard selection at 4x supersampling
@@ -262,12 +267,12 @@ SCENE_DATASET_SEEDS = (3, 5)
 SCENES_OVERRIDES = dict(n_epoches=2, train_stat_interval=10, val_stat_interval=20)
 # the lit phase: the shipped config with the renderer's shading_type, lights
 # and cameras overridden; 3 steps of each (shading, light) case. The lit path
-# launches K1 (soft blocks, hard env), K4 and the blend (K6) only
+# launches K1 (soft blocks, hard env), K4, the blend (K6) and LPIPS (K7) only
 LIT_CASES = (("flat", "directional"), ("gouraud", "point"), ("phong", "directional"))
 LIT_LIGHTS = {"directional": dict(name="directional", direction=[[1.0, 0.25, -1.0]]),
               "point": dict(name="point", location=[[0.5, 2.0, -2.5]])}
 LIT_KERNELS = ("K1_select", "K1_select_hard", "K4_texel_grad", "K6_blend_fwd",
-               "K6_blend_bwd")
+               "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd")
 N_LIT_STEPS = 3
 OTHER_OPTIMIZERS = ("sgd", "adamw", "adamax", "rmsprop", "adagrad", "adadelta")
 CRITERIA = ("bce", "mse", "l2", "l1", "huber", "perceptual", "lpips", "ssim")
@@ -300,7 +305,7 @@ NN_POINTS = 20_000
 NN_TIE_REL = 1e-5
 # kernels of the joint-rendering path (no env pass)
 JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad",
-                 "K6_blend_fwd", "K6_blend_bwd")
+                 "K6_blend_fwd", "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd")
 # kernels of the backward, held against their plain twins in the band phase
 BACKWARD_KERNELS = ("K3_frag_bwd", "K4_texel_grad", "K5_small_scatter")
 # the pixel bands of the band phase: (row0, Hb) of 2 and of 3 bands
@@ -312,15 +317,23 @@ BAND_SPLITS = {"2 bands": ((0, 150), (150, 150)),
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # floating-point operations per fragment (K2, K3, K4), row (K5) or pixel
-# slot (K6), counted from the expressions of csrc/fragment.cu, texel.cu,
-# scatter.cu and blend.cu; K1's per pixel-face pair is
-# rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
+# slot (K6) or rendered feature value (K7), counted from the expressions of
+# csrc/fragment.cu, texel.cu, scatter.cu, blend.cu and lpips.cu; K1's per
+# pixel-face pair is rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
 FLOPS_PER_ITEM = {"K2_frag_fwd": 140, "K3_frag_bwd": 260, "K4_texel_grad": 32,
-                  "K5_small_scatter": 12, "K6_blend_fwd": 9, "K6_blend_bwd": 28}
+                  "K5_small_scatter": 12, "K6_blend_fwd": 9, "K6_blend_bwd": 28,
+                  "K7_lpips_fwd": 11, "K7_lpips_bwd": 26}
 # kernels whose device time per launch phase 3 also reads from a profiler
 # trace, by the name of their device kernel
 DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel",
-                  "K6_blend_fwd": "blend_fwd_kernel", "K6_blend_bwd": "blend_bwd_kernel"}
+                  "K6_blend_fwd": "blend_fwd_kernel", "K6_blend_bwd": "blend_bwd_kernel",
+                  "K7_lpips_fwd": "lpips_fwd_kernel", "K7_lpips_bwd": "lpips_bwd_kernel"}
+# K7's checks: the five VGG16 slice shapes (C channels, the view halved by
+# each pool) of each benchmark cell's views, 20 renders (5 slots of 4
+# views) against the 4 targets they share
+LPIPS_CELLS = {"campanile": (540, 960), "dtu24": (300, 400), "gundam50": (288, 384)}
+LPIPS_SLICE_CHANNELS = (64, 128, 256, 512, 512)
+LPIPS_RENDERS, LPIPS_TARGETS = 20, 4
 # the mesh phase: MESH_RANKS ranks on card 0 under gloo (NCCL refuses two
 # ranks on one device). Each layout takes MESH_STEPS Adam steps of seed
 # MESH_SEED on the main path's inputs; the 5-seed protocol takes its
@@ -347,7 +360,8 @@ BENCH_BLOCKS = (10, 50)
 BENCH_TIMEOUT_S = 300
 BENCH_STEP_LAUNCHES = {"K1_select": 1, "K1_select_hard": 1, "K2_frag_fwd": 1,
                        "K3_frag_bwd": 1, "K4_texel_grad": 2, "K5_small_scatter": 1,
-                       "K6_blend_fwd": 2, "K6_blend_bwd": 2}
+                       "K6_blend_fwd": 2, "K6_blend_bwd": 2, "K7_lpips_fwd": 5,
+                       "K7_lpips_bwd": 5}
 # the bench trace (scripts/torch_trace_bench.py): steps traced, ops listed
 N_TRACE_STEPS = 3
 TRACE_TOP = 10
@@ -787,6 +801,65 @@ def check_blend(checks, model, B, gen, prefix="", plain_runs=20):
             del colors, alpha, g, out, d_c, d_a, c32, a32, graph
 
 
+def check_lpips(checks, gen, plain_runs=20):
+    """K7's forward and backward against the plain twin (the float32 LPIPS
+    glue) at each LPIPS_CELLS view's five slice shapes: bfloat16 ReLU
+    features from ``gen`` (about half of them 0), channels last as the
+    trunk leaves them, LPIPS_RENDERS renders against LPIPS_TARGETS targets
+    shared by index. The forward within 1e-5 of the plain twin's max (its
+    float32 sums in another order); the backward bit for bit the plain
+    twin's autograd (all-zero pixels, NaN there, left out); the plain
+    backward is timed as autograd over a kept graph. The bound counts each
+    byte once: the renders' and the targets' features read, the distances
+    (forward) and the gradient (backward) written."""
+    from dbw_torch.losses import vgg
+
+    dev = gen.device
+
+    def features(n, C, H, W):
+        x = torch.randn((n, H, W, C), generator=gen, device=dev)
+        return torch.relu(x).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    with torch.enable_grad():
+        for cell, (H, W) in LPIPS_CELLS.items():
+            for level, C in enumerate(LPIPS_SLICE_CHANNELS):
+                h, w = H >> level, W >> level
+                f2 = features(LPIPS_RENDERS, C, h, w)
+                f1 = features(LPIPS_TARGETS, C, h, w)
+                g = torch.randn(LPIPS_RENDERS, generator=gen, device=dev)
+                n = f2.numel()
+                path = f"{cell} slice {level + 1}"
+                label = f"[{path}, {LPIPS_RENDERS} x {C} x {h} x {w}]"
+                out = vgg.lpips_slice_fwd_cuda(f2, f1)
+                err_f, ok_f = check_close(
+                    f"K7 lpips forward {label}: distances", out,
+                    vgg.lpips_slice_plain(f2, f1), 1e-5,
+                    note="the plain twin's float32 sums in another order")
+                grad = vgg.lpips_slice_bwd_cuda(f2, f1, None, g)
+                x = f2.detach().clone().requires_grad_(True)
+                graph = vgg.lpips_slice_plain(x, f1)
+                (d,) = torch.autograd.grad(graph, x, g, retain_graph=True)
+                finite = torch.isfinite(d)
+                err_b = float((grad != d)[finite].sum())
+                ok_b = err_b == 0
+                say("kernels", f"K7 lpips backward {label}: {int(err_b)} of "
+                    f"{int(finite.sum())} values differ from the plain twin's autograd "
+                    f"(tolerance: none, bitwise; {int((~finite).sum())} values of all-zero "
+                    "pixels, NaN on the plain route, left out)")
+                record(checks, "K7_lpips_fwd", path, err_f, ok_f,
+                       lambda: vgg.lpips_slice_fwd_cuda(f2, f1),
+                       lambda: vgg.lpips_slice_plain(f2, f1),
+                       bound(nbytes(f2, f1, out), n * FLOPS_PER_ITEM["K7_lpips_fwd"],
+                             items=n), plain_runs=plain_runs)
+                record(checks, "K7_lpips_bwd", path, err_b, ok_b,
+                       lambda: vgg.lpips_slice_bwd_cuda(f2, f1, None, g),
+                       lambda: torch.autograd.grad(graph, x, g, retain_graph=True),
+                       bound(nbytes(f2, f1, g, grad), n * FLOPS_PER_ITEM["K7_lpips_bwd"],
+                             items=n), plain_runs=plain_runs)
+                del f2, f1, g, out, grad, x, graph, d, finite
+            torch.cuda.empty_cache()
+
+
 def check_viz_selection(checks, model, params, R, T):
     """K1-hard at 4x supersampling, at the shapes of the viz and eval
     renders: the eval scene (dome, ground and blocks, 1,248 faces: the
@@ -852,6 +925,7 @@ def phase_kernels(model, device):
         check_soft_pass(checks, "blocks pass", model, blocks, phase, R, T, gen)
         check_env_pass(checks, model, params, phase, R, T, gen)
         check_blend(checks, model, N_VIEWS, gen)
+        check_lpips(checks, gen)
         joint, _, _ = model.build_scene(params, phase, noise=noise)
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
         check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
@@ -2968,6 +3042,11 @@ def main():
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
         n: 0.0 for n in SOURCES}
+    # K7's checks are a slice each: the step launches K7 once a slice
+    for cell in LPIPS_CELLS:
+        for k in range(len(LPIPS_SLICE_CHANNELS)):
+            per_step[f"{cell} slice {k + 1}"] = {
+                n: v / len(LPIPS_SLICE_CHANNELS) for n, v in per_step["blocks pass"].items()}
     for n, r in results.items():
         for c in r["checks"]:
             c["launches_per_step"] = per_step[c["path"]][n]

@@ -32,11 +32,12 @@ NVCC_FLAGS = [
 
 LAUNCHES = {"K1_select": 0, "K1_select_hard": 0, "K1_select_hard_ss": 0,
             "K2_frag_fwd": 0, "K3_frag_bwd": 0, "K4_texel_grad": 0,
-            "K5_small_scatter": 0, "K6_blend_fwd": 0, "K6_blend_bwd": 0}
+            "K5_small_scatter": 0, "K6_blend_fwd": 0, "K6_blend_bwd": 0,
+            "K7_lpips_fwd": 0, "K7_lpips_bwd": 0}
 # a launcher's return code for an empty input (no kernel launched)
 NOTHING_LAUNCHED = -1
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "dbw_select": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
                    _P, _P],
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "dbw_small_scatter": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "dbw_blend_fwd": [_P, _P, _I, _I, _F, _F, _F, _P, _P],
     "dbw_blend_bwd": [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P],
+    "dbw_lpips_chunks": [_I, _I, _L],
+    "dbw_lpips_fwd": [_P, _P, _P, _I, _I, _I, _L, _I, _F, _P, _P, _P],
+    "dbw_lpips_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _F, _I, _P, _P],
 }
 
 _LIB = None

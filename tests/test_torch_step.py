@@ -221,6 +221,7 @@ def test_decoupled_fine_phase_step_matches(runs_decoupled):
 
 def _route_to_plain_twins(monkeypatch):
     """Send every kernel's dispatcher to its plain twin, CUDA tensors too."""
+    from dbw_torch.losses import vgg
     from dbw_torch.ops import scatter, texel_grad
     from dbw_torch.render import blend, fragment, meshes, rasterize, renderer
 
@@ -237,6 +238,7 @@ def _route_to_plain_twins(monkeypatch):
     monkeypatch.setattr(scatter, "small_table_scatter_add",
                         scatter.small_table_scatter_add_plain)
     monkeypatch.setattr(renderer, "layered_blend", blend.layered_blend_plain)
+    monkeypatch.setattr(vgg, "lpips_slice", vgg.lpips_slice_plain)
 
 
 @pytest.mark.cuda
