@@ -1165,7 +1165,7 @@ def split_step(model, params, opt, device):
     ``dbw_torch.utils.profiling`` forward and backward, recorded under
     ``recording()`` over N_SPLIT_STEPS steps. Median over the last
     N_SPLIT_STEPS - 1 steps."""
-    from dbw_torch.parallel.seeds import adam_step, slot_backward
+    from dbw_torch.parallel.seeds import train_step
     from dbw_torch.utils import profiling
 
     phase = model.phase_for_epoch(0, training=True)
@@ -1177,9 +1177,7 @@ def split_step(model, params, opt, device):
     with profiling.recording():
         for _ in range(N_SPLIT_STEPS):
             with profiling.step():
-                opt.zero_grad(set_to_none=True)
-                slot_backward(model, params, phase, imgs, R, T, gen)
-                adam_step(opt, params)
+                train_step(model, opt, params, phase, (imgs, R, T), gen)
     steps = profiling.summary()[1:N_SPLIT_STEPS]
     profiling.reset()
     # stream ms on the card, host ms where no CUDA event was taken

@@ -57,6 +57,8 @@ DECIMATE_FACTOR = 8
 OVERLAP_N_POINTS = 1000
 OVERLAP_N_BLOCKS = 1.95
 OVERLAP_TEMPERATURE = 0.005
+# a training step's random draws, in the order each slot draws them
+STEP_DRAWS = ("opacity_noise", "overlap_u")
 
 PARAM_NAMES = ("sq_eps", "R_6d_ground", "T_ground", "S", "R_6d", "T",
                "alpha_logit", "texture_bkg", "texture_ground", "textures")
@@ -626,6 +628,27 @@ class BlocksWorld:
 
     # -- losses -----------------------------------------------------------
 
+    def step_draws(self, params, generators=None, names=STEP_DRAWS):
+        """A training step's random draws, {name: tensor}: the opacity noise
+        (N,), then, with an overlap loss, the overlap points (N, 1000, 3),
+        in that order (``names`` picks some of them). ``generators``: one
+        generator (or None, the default one), or one for each slot of
+        stacked ``params``: slot s's draws come from ``generators[s]``, in
+        the order above, and are stacked to the slot shape."""
+        N, dev = self.n_blocks, self.device
+        shapes = {"opacity_noise": (N,), "overlap_u": (N, OVERLAP_N_POINTS, 3)}
+        rules = {"opacity_noise": torch.randn, "overlap_u": torch.rand}
+        names = [k for k in names if k != "overlap_u" or "overlap" in self.loss_weights]
+
+        def draw(gen, lead):
+            return {k: rules[k](lead + shapes[k], generator=gen, device=dev) for k in names}
+
+        lead = self.slot_shape(params)
+        if not isinstance(generators, (list, tuple)):
+            return draw(generators, lead)
+        per = [draw(g, ()) for g in generators]
+        return {k: torch.stack([d[k] for d in per]).reshape(lead + shapes[k]) for k in names}
+
     def compute_losses(self, imgs, rec, params, phase: Phase, aux,
                        overlap_u=None, generator=None):
         """Training objective; imgs/rec (B, H, W, 3). ``overlap_u``:
@@ -682,8 +705,7 @@ class BlocksWorld:
                 S, R, T = aux["S"], aux["R"], aux["T"]
                 N = self.n_blocks
                 if overlap_u is None:
-                    overlap_u = torch.rand(lead + (N, OVERLAP_N_POINTS, 3),
-                                           generator=generator, device=self.device)
+                    overlap_u = self.step_draws(params, generator, ("overlap_u",))["overlap_u"]
                 pts = overlap_u * 2.0 - 1.0
                 pts = (pts * self.ratio_block_scene * S[..., None, :]) @ R + T[..., None, :]
                 # every block's points against every block of the same slot
@@ -701,7 +723,8 @@ class BlocksWorld:
                 opacity_noise=None, overlap_u=None, row_range=None,
                 rec_gather=None):
         """predict + losses. The two random draws (opacity noise (N,),
-        overlap points (N, 1000, 3)) come from ``generator`` unless given.
+        overlap points (N, 1000, 3)) come from ``generator``
+        (``step_draws``) unless given.
         S stacked slots: the draws (S, N) and (S, N, 1000, 3), R and T per
         view (S * B, ...), the losses (S,) (``compute_losses``).
 
@@ -711,10 +734,12 @@ class BlocksWorld:
         losses need (across cards an all-gather over the bands and a crop),
         and the gradients flow back through it into the band's render."""
         with profiling.span("dbw.forward"):
-            if opacity_noise is None:
+            given = {"opacity_noise": opacity_noise, "overlap_u": overlap_u}
+            missing = [k for k, v in given.items() if v is None]
+            if missing:
                 with profiling.span("dbw.build"):
-                    opacity_noise = torch.randn(self.slot_shape(params) + (self.n_blocks,),
-                                                generator=generator, device=self.device)
+                    given.update(self.step_draws(params, generator, missing))
+            opacity_noise, overlap_u = given["opacity_noise"], given["overlap_u"]
             rec, aux = self.predict(params, phase, R, T, noise=opacity_noise,
                                     row_range=row_range)
             if rec_gather is not None:

@@ -4,7 +4,8 @@ renderers are swapped in for the scene and restored after (JAX
 ``scenes.py:84-98`` re-invokes ``set_camera`` inside the traced scene
 function); here each scene's set is built once by ``set_camera`` and kept.
 
-On one device ``scene_backward`` is the JAX trainer's single-device
+On one device ``scene_backward`` (the forward and backward of
+``seeds.train_step`` given cameras) is the JAX trainer's single-device
 program, a nested ``seed_axis_exec`` over (scene, seed): batched (``vmap``,
 the default) it runs every scene's every seed as one step of n_scene * S
 slots, each slot's views rendered with its scene's intrinsics, given per
@@ -24,9 +25,9 @@ import torch
 
 from ..render.cameras import view_camera
 from ..render.renderer import Renderer
+from ..utils import profiling
 from .mesh import _mesh, factor_devices, world
-from .seeds import (batched_backward, mean_and_step, n_slots, seed_backward, seed_exec_mode,
-                    slot, stack_draws, stack_params)
+from .seeds import one_by_one, seed_backward, slot, stack_params, train_step
 
 CAMERA_ATTRS = ("camera", "renderer", "renderer_env", "renderer_viz",
                 "renderer_light")
@@ -67,35 +68,30 @@ def views_state(model, cameras, n_views):
     return {a: Renderer(getattr(model, a).config, cam) for a in ("renderer", "renderer_env")}
 
 
-def scene_backward(model, params, phase, views, cameras, generators=None, draws=None):
+def scene_backward(model, params, phase, views, cameras, draws):
     """Every (scene, seed) slot's forward and backward on one device (the
     JAX trainer's nested ``seed_axis_exec``): ``params`` (n_scene, S, ...)
     stacked leaves, ``views[i]`` scene i's (imgs, R, T), ``cameras[i]`` its
-    ``camera_state``, ``generators[i]`` its seeds' generators (or
-    ``draws[i]`` their draws, as ``seed_backward`` takes them). Batched,
-    slot (i, j) is slot i * S + j of one step, on views of scene i. Returns
-    the (n_scene, S) totals."""
-    n = n_slots(params)
-    S = n_slots(slot(params, 0))
-    generators = generators or [[None] * S] * n
-    draws = draws or [[None] * S] * n
-    mode = seed_exec_mode()
-    if mode == "map" or (mode != "vmap" and n == 1):
+    ``camera_state``, ``draws`` the step's, (n_scene, S, ...). Scenes run
+    one after the other (``one_by_one``) with the camera swap, each scene's
+    seeds by ``seed_backward``; batched, slot (i, j) is slot i * S + j of one
+    step, on views of scene i. -> the detached losses, (n_scene, S) each."""
+    n, S = model.slot_shape(params)
+    if one_by_one(n):
         rows = []
-        for i in range(n):
+        for i, (imgs, R, T) in enumerate(views):
             with use_camera(model, cameras[i]):
-                rows.append(seed_backward(model, slot(params, i), phase, *views[i],
-                                          generators[i], draws[i]))
-        return torch.stack(rows)
-    flat = {k: v.reshape(n * S, *v.shape[2:]) for k, v in params.items()}
-    imgs, R, T = (torch.cat([v[c].repeat(S, *[1] * (v[c].ndim - 1)) for v in views])
-                  for c in range(3))
-    state = views_state(model, cameras, [S * len(v[1]) for v in views])
-    flat_draws = stack_draws(model, [g for gs in generators for g in gs],
-                             [d for ds in draws for d in ds])
+                rows.append(seed_backward(model, slot(params, i), phase, imgs,
+                                          R.repeat(S, 1, 1), T.repeat(S, 1), slot(draws, i)))
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    flat = lambda d: {k: v.reshape(n * S, *v.shape[2:]) for k, v in d.items()}
+    with profiling.span("dbw.build"):
+        imgs, R, T = (torch.cat([v[c].repeat(S, *[1] * (v[c].ndim - 1)) for v in views])
+                      for c in range(3))
+        state = views_state(model, cameras, [S * len(v[1]) for v in views])
     with use_camera(model, state):
-        totals = batched_backward(model, flat, phase, imgs, R, T, flat_draws)
-    return totals.reshape(n, S)
+        losses = seed_backward(model, flat(params), phase, imgs, R, T, flat(draws))
+    return {k: v.reshape(n, S) for k, v in losses.items()}
 
 
 def stack_scene_params(per_scene_params_lists):
@@ -145,9 +141,7 @@ class MultiSceneRunner:
         self.camera = camera
 
     def step(self, params, phase, imgs, R, T, generators=None, draws=None):
-        """-> the (1, S_local) total losses, averaged over the data axis."""
-        self.optimizer.zero_grad(set_to_none=True)
-        with use_camera(self.model, self.camera):
-            losses = seed_backward(self.model, slot(params, 0), phase, imgs, R, T,
-                                   generators, draws)
-        return mean_and_step(self.mesh, self.optimizer, params, losses)[None]
+        """``train_step`` of this rank's scene. -> the (1, S_local) total
+        losses, averaged over the data axis."""
+        return train_step(self.model, self.optimizer, params, phase, [(imgs, R, T)],
+                          generators, draws, self.mesh, cameras=[self.camera])["total"]

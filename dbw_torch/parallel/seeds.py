@@ -3,8 +3,11 @@ optimizations of one model config keep every parameter as one stacked leaf
 (S, ...) under one torch Adam, which is S Adams: its update is elementwise
 and the slots share its step count.
 
-``seed_axis_exec`` runs a step's slots as the JAX package's executor does,
-by ``DBW_SEED_EXEC``:
+``train_step`` is the optimizer step of every trainer of the port: the
+Trainer's one set of leaves, the protocol's S stacked slots and the
+multi-scene trainer's (n_scene, S) slots, on one card or one rank of a
+mesh. Its forward and backward (``seed_backward``) run stacked slots as
+the JAX package's executor does, by ``DBW_SEED_EXEC`` (``one_by_one``):
 - ``vmap``: one batched call on the stacked values. The model takes the
   leading slot axis itself (``models/dbw.py``): one forward renders the S
   slots' S * B views with one launch of each kernel and gives the (S,)
@@ -18,7 +21,8 @@ by ``DBW_SEED_EXEC``:
   CPU. (JAX's guard against ``vmap`` with its Pallas texel kernel is for
   a Mosaic lowering limit the card does not have.)
 Each slot's random draws (opacity noise (N,), overlap points (N, 1000, 3))
-come from its own generator in either mode, so both see the same draws.
+come from its own generator (``BlocksWorld.step_draws``) before the
+forward, so both executors see the same draws.
 
 Across ranks, ``MultiSeedRunner`` is JAX's (seed, data[, sp]) sharded step
 on a ``mesh.Mesh``: each rank holds its seed column's slots, renders its
@@ -37,7 +41,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.dbw import OVERLAP_N_POINTS
 from ..utils import profiling
 
 
@@ -55,11 +58,6 @@ def n_slots(x):
     return len(x)
 
 
-def seed_exec_mode():
-    """``DBW_SEED_EXEC``: ``vmap``, ``map`` or ``auto`` (the default)."""
-    return os.environ.get("DBW_SEED_EXEC", "auto").lower()
-
-
 def _stacked(outs):
     """Per-slot results stacked leaf by leaf (tensors, and dicts and tuples
     of them); anything else listed."""
@@ -73,21 +71,24 @@ def _stacked(outs):
     return outs
 
 
+def one_by_one(n):
+    """Whether the executor, ``DBW_SEED_EXEC`` (``vmap``, ``map`` or
+    ``auto``, the default), runs ``n`` slots one after the other: under
+    ``map``, and under ``auto`` for one slot (JAX's direct call); else
+    (``vmap``, ``auto`` for several) one batched call. The port has no
+    compact pipeline, JAX's reason for ``map`` under ``auto``."""
+    mode = os.environ.get("DBW_SEED_EXEC", "auto").lower()
+    return mode == "map" or (mode != "vmap" and n == 1)
+
+
 def seed_axis_exec(fn, *xs):
     """``fn`` over the leading (seed) axis of ``xs`` (dicts of stacked
-    tensors, tensors or per-slot lists), by ``seed_exec_mode()``: ``map``
-    calls it on each slot and stacks the results (``_stacked``);
-    ``vmap`` calls it once on the stacked ``xs`` (``fn`` takes the leading
-    slot axis itself: the model's functions do); ``auto`` calls it on the
-    slot of a one-slot axis and keeps the leading axis, else is ``vmap``
-    (the port has no compact pipeline, JAX's reason for ``map``)."""
+    tensors, tensors or per-slot lists): one slot after the other
+    (``one_by_one``), the results stacked (``_stacked``), the leading axis
+    kept; else one call on the stacked ``xs`` (``fn`` takes the leading
+    slot axis itself: the model's functions do)."""
     n = n_slots(xs[0])
-    mode = seed_exec_mode()
-    if mode not in ("vmap", "map"):  # auto
-        if n == 1:
-            return _stacked([fn(*(slot(x, 0) for x in xs))])
-        mode = "vmap"
-    if mode == "map":
+    if one_by_one(n):
         return _stacked([fn(*(slot(x, s) for x in xs)) for s in range(n)])
     return fn(*xs)
 
@@ -130,112 +131,71 @@ def select_best_seed(stacked_params, losses, n_valid=None):
     return unstack_params(stacked_params, best), best
 
 
-def slot_draws(model, generator, draws=None):
-    """One slot's random draws as its forward makes them, in its order:
-    the opacity noise (N,), then, with an overlap loss, the overlap points
-    (N, 1000, 3), from ``generator``; those in ``draws`` are taken as
-    given."""
-    out = dict(draws or {})
-    N, dev = model.n_blocks, model.device
-    if out.get("opacity_noise") is None:
-        out["opacity_noise"] = torch.randn((N,), generator=generator, device=dev)
-    if "overlap" in model.loss_weights and out.get("overlap_u") is None:
-        out["overlap_u"] = torch.rand((N, OVERLAP_N_POINTS, 3), generator=generator,
-                                      device=dev)
-    return out
-
-
-def stack_draws(model, generators, draws):
-    """Every slot's ``slot_draws``, stacked: {name: (S, ...)}."""
-    per = [slot_draws(model, g, d) for g, d in zip(generators, draws)]
-    return {k: torch.stack([d[k] for d in per]) for k in per[0]}
-
-
-def batched_backward(model, params, phase, imgs, R, T, draws, band=None):
-    """The batched step's forward and backward: S stacked slots, R (S * B,
-    3, 3) and T (S * B, 3) per view (slot s in views s * B .. s * B + B -
-    1), imgs per view or the B views every slot shares, ``draws`` stacked
-    (``stack_draws``). One forward, one ``backward()`` of the (S,) totals'
-    sum: each slot's gradient lands in its slot of the stacked leaves.
-    Returns the detached (S,) totals."""
+def seed_backward(model, params, phase, imgs, R, T, draws, band=None):
+    """The forward and ``backward()`` of ``params``, one set or S stacked
+    slots, as ``model.forward`` takes them: R and T per view (S * B, ...),
+    slot s in views s * B .. s * B + B - 1, imgs per view or the B views
+    every slot shares, ``draws`` the step's (``model.step_draws``).
+    Stacked slots run by the executor: batched, one forward and one
+    ``backward()`` of the (S,) totals' sum, each slot's gradient landing in
+    its slot of the stacked leaves; or one slot after the other
+    (``one_by_one``). ``band``: the forward's ``row_range`` and
+    ``rec_gather`` on the pixel-band axis. -> the detached losses
+    {name: (S,) or scalar}."""
+    lead = model.slot_shape(params)
+    if lead and one_by_one(lead[0]):
+        S, B = lead[0], len(R) // lead[0]
+        view = lambda x, s: x[s * B:(s + 1) * B] if len(x) == len(R) else x
+        return _stacked([seed_backward(model, slot(params, s), phase, view(imgs, s),
+                                       view(R, s), view(T, s), slot(draws, s), band)
+                         for s in range(S)])
     losses = model.forward(params, phase, imgs, R, T, **draws, **(band or {}))
     with profiling.span("dbw.loss.other"):
         total = profiling.mark(losses["total"].sum(), "dbw.loss.other")
     with profiling.span("dbw.backward"):
         total.backward()
-    return losses["total"].detach()
+    return {k: v.detach() for k, v in losses.items()}
 
 
-def slot_backward(model, params, phase, imgs, R, T, generator=None, draws=None,
-                  band=None):
-    """One slot's forward and backward: its gradients accumulate into the
-    stacked leaves' ``grad`` at its slot. ``draws``: the forward's random
-    draws (``opacity_noise``, ``overlap_u``) when given, else they come
-    from ``generator``. ``band``: the forward's ``row_range`` and
-    ``rec_gather`` on the pixel-band axis. Returns the slot's detached
-    total loss. Stacked ``params`` (S, ...) with per-slot lists of
-    generators and draws run the S slots batched on the same views
-    (``batched_backward``) and return the (S,) totals."""
-    lead = model.slot_shape(params)
-    if lead:
-        S = lead[0]
-        with profiling.span("dbw.build"):
-            R, T = R.repeat(S, 1, 1), T.repeat(S, 1)
-            draws = stack_draws(model, generator, draws)
-        return batched_backward(model, params, phase, imgs, R, T, draws, band)
-    losses = model.forward(params, phase, imgs, R, T, generator=generator,
-                           **(draws or {}), **(band or {}))
-    with profiling.span("dbw.backward"):
-        losses["total"].backward()
-    return losses["total"].detach()
+def train_step(model, optimizer, params, phase, views, generators=None, draws=None,
+               mesh=None, band=None, cameras=None):
+    """One optimizer step of ``params`` under ``optimizer``: the Trainer's
+    leaves, S stacked slots, or with ``cameras`` (one ``camera_state`` a
+    scene) (n_scene, S) stacked slots.
 
+    1. the gradients zeroed;
+    2. the step's draws from ``generators`` (``model.step_draws``), unless
+       ``draws`` gives them;
+    3. the forward and backward: ``seed_backward`` on ``views``, the
+       (imgs, R, T) of the B views every slot shares; with ``cameras``,
+       ``scenes.scene_backward`` on ``views``, one (imgs, R, T) a scene;
+    4. the leaf ``dbw.optimizer``: a leaf the losses do not reach
+       (alpha_logit in the fine phase) takes a zero gradient, so that Adam
+       still advances its moments, as optax does; on a ``mesh``, the
+       gradients and the totals averaged over its reduction axis (one
+       all_reduce); the optimizer step.
 
-def adam_step(optimizer, params):
-    """The optimizer step over the leaves (stacked, or the Trainer's). A
-    leaf the step's losses do not reach (alpha_logit in the fine phase)
-    takes a zero gradient, so that Adam still advances its moments, as
-    optax does, instead of skipping it. The leaf ``dbw.optimizer``."""
-    with profiling.span("dbw.optimizer"):
-        _zero_fill(params)
-        optimizer.step()
-
-
-def _zero_fill(params):
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-
-
-def seed_backward(model, params, phase, imgs, R, T, generators=None, draws=None,
-                  band=None):
-    """Every seed slot's forward and backward on the same views, through
-    ``seed_axis_exec`` (batched, or one slot after the other); the
-    gradients accumulate into the stacked leaves. Returns the (S,) total
-    losses, on the device."""
-    S = n_slots(params)
-    return seed_axis_exec(
-        lambda p, g, d: slot_backward(model, p, phase, imgs, R, T, g, d, band),
-        params, generators or [None] * S, draws or [None] * S)
-
-
-def seed_step(model, params, optimizer, phase, imgs, R, T, generators=None,
-              draws=None):
-    """One Adam step of every seed slot on the same views: ``seed_backward``,
-    then one step of ``optimizer`` over the stacked leaves. Returns the (S,)
-    total losses, on the device."""
+    -> the detached losses, {name: tensor of the slot shape}."""
     optimizer.zero_grad(set_to_none=True)
-    losses = seed_backward(model, params, phase, imgs, R, T, generators, draws)
-    adam_step(optimizer, params)
-    return losses
+    lead = model.slot_shape(params)
+    with profiling.span("dbw.build"):
+        if draws is None:
+            draws = model.step_draws(params, generators)
+        if cameras is None and lead:
+            imgs, R, T = views
+            views = imgs, R.repeat(lead[0], 1, 1), T.repeat(lead[0], 1)
+    if cameras is None:
+        losses = seed_backward(model, params, phase, *views, draws, band)
+    else:
+        from .scenes import scene_backward  # scenes.py imports this module
 
-
-def mean_and_step(mesh, optimizer, params, losses):
-    """The gradients in ``params`` and the ``losses`` averaged over the
-    mesh's seed column (one all_reduce), then the optimizer step (the leaf
-    ``dbw.optimizer``). -> ``losses``, averaged."""
+        losses = scene_backward(model, params, phase, views, cameras, draws)
     with profiling.span("dbw.optimizer"):
-        _zero_fill(params)  # the zero gradient adam_step would give it
-        mesh.mean([p.grad for p in params.values()] + [losses])
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            mesh.mean([p.grad for p in params.values()] + [losses["total"]])
         optimizer.step()
     return losses
 
@@ -294,14 +254,12 @@ class MultiSeedRunner:
                          "rec_gather": lambda rec: band_gather(rec, axis, H)}
 
     def step(self, params, phase, imgs, R, T, generators=None, draws=None):
-        """One Adam step of this rank's slots on its views. Returns the
-        slots' (S_local,) total losses, averaged over the seed column (the
-        span ``dbw.step``)."""
+        """One Adam step of this rank's slots on its views (``train_step``).
+        Returns the slots' (S_local,) total losses, averaged over the seed
+        column (the span ``dbw.step``)."""
         with profiling.step():
-            self.optimizer.zero_grad(set_to_none=True)
-            losses = seed_backward(self.model, params, phase, imgs, R, T, generators, draws,
-                                   self.band)
-            return mean_and_step(self.mesh, self.optimizer, params, losses)
+            return train_step(self.model, self.optimizer, params, phase, (imgs, R, T),
+                              generators, draws, self.mesh, self.band)["total"]
 
     def select_best(self, params, losses, n_valid=None):
         """Selection by the lowest train loss over every seed column's slots:

@@ -53,16 +53,14 @@ from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..models import create_model
 from ..parallel.mesh import world
-from ..parallel.scenes import (MultiSceneRunner, camera_state, make_scene_mesh, scene_backward,
-                               use_camera)
-from ..parallel.seeds import (adam_step, pad_seeds, seed_axis_exec, slot, stack_params,
-                              stacked_leaves)
+from ..parallel.scenes import MultiSceneRunner, camera_state, make_scene_mesh, use_camera
+from ..parallel.seeds import pad_seeds, slot, stack_params, stacked_leaves, train_step
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.logger import print_log, print_warning
 from ..utils.misc import path_mkdir
 from . import checkpoint as ck
-from .multi_seed import (evaluate_slots, gathered_snapshot, jax_key, shared_lpips,
-                         slot_snapshot)
+from .multi_seed import (evaluate_slots, gathered_snapshot, jax_key, protocol_epoch,
+                         shared_lpips, slot_snapshot)
 from .optimizer import create_optimizer
 from .scheduler import base_lrs, create_scheduler, set_lrs
 from .trainer import _HostWorker, _pad_ids, gather_views, step_seed
@@ -285,8 +283,7 @@ class MultiSceneTrainer:
     # ------------------------------------------------------------------
 
     def _val_and_log(self, it, epoch, batch):
-        alphas = seed_axis_exec(lambda p: seed_axis_exec(self.model.get_opacities, p),
-                                self.params)
+        alphas = self.model.get_opacities(self.params)
         if self.mesh:
             alphas = self._gather_slots(alphas)
         alphas = alphas.cpu().numpy()
@@ -311,29 +308,22 @@ class MultiSceneTrainer:
     def _train_step(self, ids_sc):
         """One Adam step of every (scene, seed) slot: scene i on its views
         ``ids_sc[i]`` with its camera (on a mesh: this rank's slots of its
-        scene on its shard of the views)."""
-        if self.runner:
-            i = self.scenes[0]
-            idx = _pad_ids(ids_sc[i], self.batch_size)[0][self.mesh.data_slice(self.batch_size)]
-            imgs, R, T = gather_views(self.datasets[i], idx, self.device)
-            gens = [torch.Generator(device=self.device).manual_seed(
-                step_seed(s, self._step_ctr)) for s in self.scene_seeds[i][self.slots]]
-            self._step_ctr += 1
-            rows = self.runner.step(self.params, self.phase, imgs, R, T, gens)
-            n_reals = [_pad_ids(ids, self.batch_size)[1] for ids in ids_sc]
-            self._loss_buffer.append((rows, np.array(n_reals, np.int64)))
-            return
-        self.optimizer.zero_grad(set_to_none=True)
-        views, gens, n_reals = [], [], []
-        for i, ids in enumerate(ids_sc):
-            idx, n_real = _pad_ids(ids, self.batch_size)
+        scene on its shard of the views, through ``MultiSceneRunner``)."""
+        views, gens = [], []
+        for i in self.scenes:
+            idx = _pad_ids(ids_sc[i], self.batch_size)[0]
+            if self.mesh:
+                idx = idx[self.mesh.data_slice(self.batch_size)]
             views.append(gather_views(self.datasets[i], idx, self.device))
-            gens.append([torch.Generator(device=self.device).manual_seed(
-                step_seed(s, self._step_ctr)) for s in self.scene_seeds[i]])
-            n_reals.append(n_real)
+            gens += [torch.Generator(device=self.device).manual_seed(step_seed(s, self._step_ctr))
+                     for s in self.scene_seeds[i][self.slots]]
         self._step_ctr += 1
-        rows = scene_backward(self.model, self.params, self.phase, views, self.cameras, gens)
-        adam_step(self.optimizer, self.params)
+        if self.runner:
+            rows = self.runner.step(self.params, self.phase, *views[0], gens)
+        else:
+            rows = train_step(self.model, self.optimizer, self.params, self.phase, views, gens,
+                              cameras=self.cameras)["total"]
+        n_reals = [_pad_ids(ids, self.batch_size)[1] for ids in ids_sc]
         self._loss_buffer.append((rows, np.array(n_reals, np.int64)))
 
     def _run_group(self, group):
@@ -346,14 +336,7 @@ class MultiSceneTrainer:
         slot, the (n_scene, n_seeds) final losses); None on an idle rank."""
         if self.idle:
             return None
-        try:
-            return self._run()
-        except BaseException:
-            # the checkpoint saved before the exception must land
-            self._host.join(raise_fatal=False)
-            raise
-        finally:
-            self._host.close()
+        return self._host.run(self._run)
 
     def _run(self):
         t0 = time.time()
@@ -364,22 +347,7 @@ class MultiSceneTrainer:
                 self._drain_losses()
                 self.loss_sums[:] = 0.0
                 self.n_seen[:] = 0
-            batch_start = self.batch_start if epoch == self.epoch_start else 1
-            cur_iter = (epoch - 1) * self.n_batches + batch_start
-            SPC = max(self.steps_per_call, 1)
-            pending = []
-            iters = [ld[0].iter_indices() for ld in self.loaders]
-            for batch in range(1, self.n_batches + 1):
-                ids_sc = [next(it) for it in iters]
-                if batch < batch_start:
-                    continue
-                pending.append((batch, ids_sc))
-                if len(pending) < SPC:
-                    continue
-                cur_iter = self._flush(pending, cur_iter, epoch)
-                pending = []
-            if pending:
-                cur_iter = self._flush(pending, cur_iter, epoch)
+            protocol_epoch(self, epoch, zip(*[ld[0].iter_indices() for ld in self.loaders]))
             if epoch % max(self.n_epoches // 10, 1) == 0 or epoch == 1:
                 self._drain_losses()
                 means = self.loss_sums / np.maximum(self.n_seen, 1)[:, None]
@@ -415,27 +383,9 @@ class MultiSceneTrainer:
         self._host.join()  # the protocol checkpoint on disk before returning
         return self.final_params, self.best, final_losses[:, : self.n_valid]
 
-    def _flush(self, pending, cur_iter, epoch):
-        """Run a group and fire the interval actions it crossed."""
-        self._run_group(pending)
-        last_batch = pending[-1][0]
-        do_log = do_val = False
-        for _ in pending:
-            if self.train_stat_interval:
-                do_log |= cur_iter % self.train_stat_interval == 0
-            if self.val_stat_interval:
-                do_val |= cur_iter % self.val_stat_interval == 0
-            cur_iter += 1
-        if do_log:
-            self._drain_losses()
-            for i in range(self.n_scene):
-                self.train_metrics[i].log_and_reset(it=cur_iter - 1, epoch=epoch,
-                                                    batch=last_batch)
-        if do_val:
-            self._drain_losses()  # selection state must be current
-            self._val_and_log(cur_iter - 1, epoch, last_batch)
-            self.save(epoch, last_batch)
-        return cur_iter
+    def _log_train(self, it, epoch, batch):
+        for m in self.train_metrics:
+            m.log_and_reset(it=it, epoch=epoch, batch=batch)
 
     def _drain_losses(self):
         """Pull the buffered (n_scene, S) losses in one transfer into the

@@ -55,7 +55,8 @@ alone writes the run directory (the TSVs, the evolution stream,
 its own slots from ``multi_model.pkl``, so a file written on N ranks
 resumes on one, and the other way round, when the padded seed slots agree
 (the JAX package's rule). One rank is a mesh of one (seed=1, data=1):
-its collectives do nothing, so the step is ``seed_step``'s bit for bit;
+its collectives do nothing, so the step is ``train_step``'s without a
+mesh bit for bit;
 ``n_data`` or ``n_spatial`` above 1 raise there, as on one JAX device.
 
 Left out, as TPU machinery: the AOT cache, the device packer, the
@@ -74,8 +75,7 @@ from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..models import create_model
 from ..parallel.mesh import factor_devices, make_mesh, world
-from ..parallel.seeds import (MultiSeedRunner, pad_seeds, seed_axis_exec, select_best_seed,
-                              slot, stacked_leaves)
+from ..parallel.seeds import MultiSeedRunner, pad_seeds, select_best_seed, slot, stacked_leaves
 from ..render.trajectory import to_u8
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.image import ImageLogger
@@ -84,7 +84,7 @@ from ..utils.misc import path_mkdir, use_seed
 from . import checkpoint as ck
 from .optimizer import create_optimizer
 from .scheduler import base_lrs, create_scheduler, set_lrs
-from .trainer import _HostWorker, _pad_ids, gather_views, step_seed
+from .trainer import _HostWorker, _pad_ids, epoch_groups, gather_views, step_seed
 
 MULTI_CKPT = "multi_model.pkl"
 
@@ -141,6 +141,24 @@ def seed_layout(n_dev, n_seeds, batch_size, n_data=None, n_spatial=None):
             seed_ax, n_data = n_dev, 1
     slots = -(-n_seeds // seed_ax) * seed_ax
     return seed_ax, n_data, n_sp, slots
+
+
+def protocol_epoch(t, epoch, batches):
+    """One epoch of a protocol trainer ``t`` (this module's, or
+    ``MultiSceneTrainer``) on the one schedule (``epoch_groups``): each
+    group's steps (``t._run_group``); at a log interval the drained losses
+    logged (``t._log_train``); at a val interval the drained losses, the
+    selection state (``t._val_and_log``) and a save."""
+    for group, it, do_log, do_val in epoch_groups(t, epoch, batches):
+        t._run_group(group)
+        last_batch = group[-1][0]
+        if do_log or do_val:
+            t._drain_losses()  # the selection state must be current
+        if do_log:
+            t._log_train(it, epoch, last_batch)
+        if do_val:
+            t._val_and_log(it, epoch, last_batch)
+            t.save(epoch, last_batch)
 
 
 def gathered_snapshot(snap, gather=None):
@@ -318,7 +336,7 @@ class MultiSeedTrainer:
     def _val_and_log(self, it, epoch, batch):
         """Per-seed opacity streams and the dead-seed rule (the reference
         Trainer's per run)."""
-        alphas = self.mesh.gather(seed_axis_exec(self.model.get_opacities, self.params))
+        alphas = self.mesh.gather(self.model.get_opacities(self.params))
         alphas = alphas.cpu().numpy()
         alive = (alphas > 0.01).sum(axis=1) > 0
         for i in range(self.n_valid):
@@ -379,15 +397,7 @@ class MultiSeedTrainer:
             self._train_step(ids)
 
     def run(self):
-        try:
-            return self._run()
-        except BaseException:
-            # the checkpoint saved before the exception must land: a killed
-            # protocol resumes from it
-            self._host.join(raise_fatal=False)
-            raise
-        finally:
-            self._host.close()
+        return self._host.run(self._run)
 
     def _run(self):
         t0 = time.time()
@@ -399,20 +409,7 @@ class MultiSeedTrainer:
                 self._drain_losses()
                 self.loss_sums[:] = 0.0
                 self.n_seen = 0
-            batch_start = self.batch_start if epoch == self.epoch_start else 1
-            cur_iter = (epoch - 1) * self.n_batches + batch_start
-            SPC = max(self.steps_per_call, 1)
-            pending = []
-            for batch, ids in enumerate(self.train_loader.iter_indices(), start=1):
-                if batch < batch_start:
-                    continue
-                pending.append((batch, ids))
-                if len(pending) < SPC:
-                    continue
-                cur_iter = self._flush(pending, cur_iter, epoch)
-                pending = []
-            if pending:
-                cur_iter = self._flush(pending, cur_iter, epoch)
+            protocol_epoch(self, epoch, self.train_loader.iter_indices())
             if epoch % max(self.n_epoches // 10, 1) == 0 or epoch == 1:
                 self._drain_losses()
                 means = self.loss_sums / max(self.n_seen, 1)
@@ -466,26 +463,6 @@ class MultiSeedTrainer:
             self.n_seen += n_real
             self.train_metrics.update({f"loss_s{s}": float(row[j])
                                        for j, s in enumerate(self.orig_seeds)}, N=n_real)
-
-    def _flush(self, pending, cur_iter, epoch):
-        """Run a group and fire the interval actions it crossed."""
-        self._run_group(pending)
-        last_batch = pending[-1][0]
-        do_log = do_val = False
-        for _ in pending:
-            if self.train_stat_interval:
-                do_log |= cur_iter % self.train_stat_interval == 0
-            if self.val_stat_interval:
-                do_val |= cur_iter % self.val_stat_interval == 0
-            cur_iter += 1
-        if do_log:
-            self._drain_losses()
-            self._log_train(cur_iter - 1, epoch, last_batch)
-        if do_val:
-            self._drain_losses()  # selection state must be current
-            self._val_and_log(cur_iter - 1, epoch, last_batch)
-            self.save(epoch, last_batch)
-        return cur_iter
 
     # ------------------------------------------------------------------
     # final evaluation

@@ -11,7 +11,8 @@ package's layout), the viz streams (``reconstructions``,
 the final evaluation (``final_scores.tsv``, ``quali_eval/``, and for a DTU
 scan ``dtu_scores.tsv``).
 
-The loop keeps the JAX Trainer's schedule: with ``steps_per_call`` S the
+The loop keeps the JAX Trainer's schedule (``epoch_groups``, which the
+protocol trainers share): with ``steps_per_call`` S the
 batches are taken in groups of S (a ragged tail at the end of an epoch) and
 the interval actions (log, val, viz, save) fire at the groups'
 boundaries, so the metric rows fall on the JAX Trainer's iterations. The S
@@ -38,7 +39,7 @@ import torch
 from ..data import create_train_val_test_loader
 from ..eval.metrics import Metrics
 from ..models import create_model
-from ..parallel.seeds import adam_step
+from ..parallel.seeds import train_step
 from ..render.trajectory import to_u8
 from ..utils import profiling
 from ..utils.colors import fancy_colormap
@@ -100,6 +101,18 @@ class _HostWorker:
         self._q.put(None)
         self._t.join()
 
+    def run(self, fn):
+        """``fn()``, then the thread stopped. If ``fn`` fails, the tasks it
+        submitted still run first: a checkpoint saved right before the
+        failure lands on disk, and it is what a resume reads."""
+        try:
+            return fn()
+        except BaseException:
+            self.join(raise_fatal=False)
+            raise
+        finally:
+            self.close()
+
     def _check_fatal(self):
         if self._fatal is not None:
             e, self._fatal = self._fatal, None
@@ -123,6 +136,36 @@ def _pad_ids(ids, batch_size):
     if n < batch_size:
         ids = np.concatenate([ids, np.repeat(ids[-1:], batch_size - n)])
     return ids, n
+
+
+def epoch_groups(t, epoch, batches):
+    """One epoch of the JAX trainers' schedule, shared by the port's three
+    trainers: ``batches`` (one per batch of the epoch) from the resume's
+    ``t.batch_start`` on in ``t.epoch_start``, in groups of
+    ``t.steps_per_call`` with a ragged tail at the epoch's end. Yields
+    (group, it, do_log, do_val): the group's [(batch, batch's item)], the
+    iteration of its last batch, and whether one of its iterations
+    ((epoch - 1) * t.n_batches + batch) falls on a multiple of
+    ``t.train_stat_interval`` (log) or of ``t.val_stat_interval`` (val);
+    an interval of 0 falls on none."""
+    start = t.batch_start if epoch == t.epoch_start else 1
+    size = max(int(t.steps_per_call), 1)
+
+    def crossed(group):
+        its = [(epoch - 1) * t.n_batches + b for b, _ in group]
+        hit = lambda every: bool(every) and any(i % every == 0 for i in its)
+        return group, its[-1], hit(t.train_stat_interval), hit(t.val_stat_interval)
+
+    group = []
+    for batch, item in enumerate(batches, start=1):
+        if batch < start:
+            continue
+        group.append((batch, item))
+        if len(group) == size:
+            yield crossed(group)
+            group = []
+    if group:
+        yield crossed(group)
 
 
 def gather_views(dataset, idx, device):
@@ -276,25 +319,33 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(
                 step_seed(self.seed, self._step_ctr))
             self._step_ctr += 1
-            self.optimizer.zero_grad(set_to_none=True)
-            losses = self.model.forward(self.params, phase, imgs, R, T, generator=gen)
-            with profiling.span("dbw.backward"):
-                losses["total"].backward()
-            adam_step(self.optimizer, self.params)
+            losses = train_step(self.model, self.optimizer, self.params, phase,
+                                (imgs, R, T), gen)
             # no sync here: the losses stay on the device until the log interval
             with profiling.span("dbw.loss.other"):
                 self._loss_buffer.append(
-                    (torch.stack([losses[k].detach() for k in self._loss_keys]), n_real))
+                    (torch.stack([losses[k] for k in self._loss_keys]), n_real))
             self._window_imgs += n_real
 
     def run_single_batch_train(self, ids):
-        self._train_step(ids)
+        self.run_scanned_batches([ids])
 
     def run_scanned_batches(self, ids_list):
         """A full group of steps_per_call batches, one step after the other
         (the interval actions fire after the group)."""
         for ids in ids_list:
             self._train_step(ids)
+
+    def _run_group(self, group):
+        """A group of (batch, view ids): a full group of steps_per_call > 1
+        through ``run_scanned_batches``, else batch by batch, as the JAX
+        Trainer calls its scanned and single steps."""
+        ids_list = [ids for _, ids in group]
+        if len(ids_list) == self.steps_per_call > 1:
+            self.run_scanned_batches(ids_list)
+        else:
+            for ids in ids_list:
+                self.run_single_batch_train(ids)
 
     def _drain_losses(self):
         """Pull the window's losses in one transfer and feed the meters.
@@ -313,70 +364,27 @@ class Trainer:
         self._window_t0 = time.time()
         self._window_imgs = 0
 
-    def _flush_scanned(self, pending, cur_iter, epoch):
-        """Run the buffered batches (a full group, or a ragged tail one by
-        one) and fire the interval actions the group crossed."""
-        if len(pending) == self.steps_per_call:
-            self.run_scanned_batches([ids for _, ids in pending])
-        else:
-            for _, ids in pending:
-                self.run_single_batch_train(ids)
-        last_batch = pending[-1][0]
-        do_log = do_val = False
-        for _ in pending:
-            do_log |= cur_iter % self.train_stat_interval == 0
-            do_val |= cur_iter % self.val_stat_interval == 0
-            cur_iter += 1
-        if do_log:
-            self.log_train_metrics(cur_iter - 1, epoch, last_batch)
-        if do_val:
-            self.run_val_and_log(cur_iter - 1, epoch, last_batch)
-            self.log_visualizations(cur_iter - 1)
-            self.save(epoch=epoch, batch=last_batch)
-        return cur_iter
-
     # ------------------------------------------------------------------
 
     @use_seed()
     def run(self):
-        try:
-            self._run()
-        except BaseException:
-            # a run that dies right after save() still lands that
-            # checkpoint on disk: it is what a resume reads
-            self._host.join(raise_fatal=False)
-            raise
-        finally:
-            self._host.close()
+        self._host.run(self._run)
 
     def _run(self):
-        cur_iter = (self.epoch_start - 1) * self.n_batches + self.batch_start
         self.cur_epoch = self.epoch_start
-        self.log_visualizations(cur_iter)
-        S = self.steps_per_call
+        self.log_visualizations((self.epoch_start - 1) * self.n_batches + self.batch_start)
         for epoch in range(self.epoch_start, self.n_epoches + 1):
             self.cur_epoch = epoch
-            batch_start = self.batch_start if epoch == self.epoch_start else 1
-            pending = []  # (batch index, view ids) of the current group
-            for batch, ids in enumerate(self.train_loader.iter_indices(), start=1):
-                if batch < batch_start:
-                    continue
-                if S > 1:
-                    pending.append((batch, ids))
-                    if len(pending) == S:
-                        cur_iter = self._flush_scanned(pending, cur_iter, epoch)
-                        pending = []
-                    continue
-                self.run_single_batch_train(ids)
-                if cur_iter % self.train_stat_interval == 0:
-                    self.log_train_metrics(cur_iter, epoch, batch)
-                if cur_iter % self.val_stat_interval == 0:
-                    self.run_val_and_log(cur_iter, epoch, batch)
-                    self.log_visualizations(cur_iter)
-                    self.save(epoch=epoch, batch=batch)
-                cur_iter += 1
-            if pending:
-                cur_iter = self._flush_scanned(pending, cur_iter, epoch)
+            for group, it, do_log, do_val in epoch_groups(self, epoch,
+                                                          self.train_loader.iter_indices()):
+                self._run_group(group)
+                last_batch = group[-1][0]
+                if do_log:
+                    self.log_train_metrics(it, epoch, last_batch)
+                if do_val:
+                    self.run_val_and_log(it, epoch, last_batch)
+                    self.log_visualizations(it)
+                    self.save(epoch=epoch, batch=last_batch)
             if epoch != self.n_epoches:
                 self.step(epoch + 1)
             if epoch in self.save_epoches:

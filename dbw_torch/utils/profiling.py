@@ -38,9 +38,9 @@ outermost host op of every moment of the step): ``dbw.step``
 ``dbw.forward`` (``BlocksWorld.forward``), ``dbw.backward`` (the
 ``backward()`` call) and ``dbw.optimizer``; ``dbw.forward`` holds
 ``dbw.env_pass`` and ``dbw.blocks_pass`` (each a build, raster, shade and
-blend) and the losses. The batched step's draws (``dbw.build``) come
-before its forward, and the Trainer's stacked losses (``dbw.loss.other``)
-after its optimizer step.
+blend) and the losses. Every step's draws (``dbw.build``, in
+``parallel.seeds.train_step``) come before its forward, and the Trainer's
+stacked losses (``dbw.loss.other``) after its optimizer step.
 
 The backward's leaves, ``dbw.bwd.<leaf>`` (``dbw.bwd.raster`` for
 ``dbw.raster``), are children of ``dbw.backward``. ``mark(outputs, leaf)``

@@ -180,9 +180,9 @@ def test_stacked_step_matches_jax():
     for step in range(3):
         keys = jnp.stack([jax.random.fold_in(jax.random.PRNGKey(s), step) for s in SEEDS])
         jp, jo, jl = jstep(jp, jo, keys)
-        draws = [dict(zip(("opacity_noise", "overlap_u"), _draws(tm, keys[i])))
-                 for i in range(len(SEEDS))]
-        tl = tseeds.seed_step(tm, tp, topt, tphase, it, Rt, Tt, draws=draws)
+        draws = dict(zip(("opacity_noise", "overlap_u"),
+                         map(torch.stack, zip(*[_draws(tm, keys[i]) for i in range(len(SEEDS))]))))
+        tl = tseeds.train_step(tm, topt, tp, tphase, (it, Rt, Tt), draws=draws)["total"]
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LOSS_RTOL)
     for k in jp._fields:
         got, ref = tp[k].detach().numpy(), np.asarray(getattr(jp, k))

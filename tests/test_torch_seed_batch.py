@@ -164,7 +164,9 @@ def test_auto_is_batched_and_launches_each_kernel_once(monkeypatch):
         calls.clear()
         p = tseeds.stacked_leaves([tm.init_params(seed=s) for s in SEEDS])
         gens = [torch.Generator().manual_seed(s) for s in SEEDS]
-        tseeds.seed_backward(tm, p, tm.phase_for_epoch(0), imgs, R, T, gens)
+        S = len(SEEDS)
+        tseeds.seed_backward(tm, p, tm.phase_for_epoch(0), imgs, R.repeat(S, 1, 1),
+                             T.repeat(S, 1), tm.step_draws(p, gens))
         per_mode[mode] = dict(calls)
     one = {"rasterize": 2, "frag_fwd": 1, "frag_bwd": 1, "quad_maps_grad": 2,
            "small_table_scatter_add": 1}
@@ -187,7 +189,8 @@ def _seed_steps(cfg, train_cfg, n_steps, mode, monkeypatch):
     losses = []
     for step in range(n_steps):
         gens = [torch.Generator().manual_seed(1000 * s + step) for s in SEEDS]
-        losses.append(tseeds.seed_step(tm, p, opt, tm.phase_for_epoch(0), imgs, R, T, gens))
+        losses.append(tseeds.train_step(tm, opt, p, tm.phase_for_epoch(0), (imgs, R, T),
+                                        gens)["total"])
     return torch.stack(losses), {k: v.detach() for k, v in p.items()}, opt, p
 
 
@@ -222,7 +225,7 @@ def test_batched_forward_is_each_slots(monkeypatch):
     st = tseeds.stack_params(plist)
     phase = tm.phase_for_epoch(0)
     gens = [torch.Generator().manual_seed(s) for s in SEEDS]
-    draws = tseeds.stack_draws(tm, gens, [None] * len(SEEDS))
+    draws = tm.step_draws(st, gens)
     S = len(SEEDS)
     with torch.no_grad():
         rec, aux = tm.predict(st, phase, R.repeat(S, 1, 1), T.repeat(S, 1),
@@ -237,14 +240,38 @@ def test_batched_forward_is_each_slots(monkeypatch):
                 assert torch.equal(v, losses[k][s]), (s, k)
 
 
+@pytest.mark.parametrize("cfg", [FULL_CFG, JAX_CHECK_CFG], ids=["overlap", "no_overlap"])
+def test_step_draws_are_each_generators_own(cfg):
+    """``step_draws`` with S generators is each generator's own draws for
+    one set of parameters, stacked, bit for bit; the overlap points only
+    with an overlap loss."""
+    tm = _model(cfg)
+    one = tm.init_params(seed=0)
+    st = tseeds.stack_params([tm.init_params(seed=s) for s in SEEDS])
+    got = tm.step_draws(st, [torch.Generator().manual_seed(s) for s in SEEDS])
+    own = [tm.step_draws(one, torch.Generator().manual_seed(s)) for s in SEEDS]
+    assert set(got) == ({"opacity_noise", "overlap_u"} if "overlap_weight" in cfg["loss"]
+                        else {"opacity_noise"})
+    for k, v in got.items():
+        assert torch.equal(v, torch.stack([d[k] for d in own])), k
+    # the forward's own draws from a generator are these
+    gen = torch.Generator().manual_seed(SEEDS[0])
+    noise = torch.randn((tm.n_blocks,), generator=gen)
+    assert torch.equal(own[0]["opacity_noise"], noise)
+    if "overlap_u" in got:
+        assert torch.equal(own[0]["overlap_u"], torch.rand((tm.n_blocks, 1000, 3), generator=gen))
+
+
 # ---------------------------------------------------------------------------
 # against the JAX package
 
 
 def _jax_draws(tm, keys):
+    """JAX's draws of the slots of ``keys``, stacked: {name: (S, ...)}."""
     from test_torch_step import _draws
 
-    return [dict(zip(("opacity_noise", "overlap_u"), _draws(tm, k))) for k in keys]
+    return dict(zip(("opacity_noise", "overlap_u"),
+                    map(torch.stack, zip(*[_draws(tm, k) for k in keys]))))
 
 
 def _jax_atol(k):
@@ -307,7 +334,7 @@ def test_scene_seed_step_matches_jax_nested_vmap(monkeypatch):
     from dbw_tpu.parallel.seeds import stack_params as jstack
     from dbw_tpu.train.multi_scene import MultiSceneTrainer as JaxMultiScene
     from dbw_tpu.train.optimizer import create_optimizer as jax_create_optimizer
-    from dbw_torch.parallel.scenes import camera_state, scene_backward
+    from dbw_torch.parallel.scenes import camera_state
     from dbw_torch.train.optimizer import create_optimizer
 
     monkeypatch.setenv("DBW_SEED_EXEC", "vmap")
@@ -344,10 +371,9 @@ def test_scene_seed_step_matches_jax_nested_vmap(monkeypatch):
                            jnp.asarray(idx[step]), jphase, lrs, keys)
         views = [tuple(v[c][idx[step][i]] for c in range(3))
                  for i, v in enumerate(scene_views)]
-        topt.zero_grad(set_to_none=True)
-        tl = scene_backward(tm, tp, tphase, views, cams,
-                            draws=[_jax_draws(tm, keys[i]) for i in range(len(seeds))])
-        tseeds.adam_step(topt, tp)
+        per_scene = [_jax_draws(tm, keys[i]) for i in range(len(seeds))]
+        draws = {k: torch.stack([d[k] for d in per_scene]) for k in per_scene[0]}
+        tl = tseeds.train_step(tm, topt, tp, tphase, views, draws=draws, cameras=cams)["total"]
         assert tm.camera is own
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LOSS_RTOL)
     for k in jp._fields:
@@ -371,8 +397,9 @@ def test_scene_seed_step_equals_map(monkeypatch):
         monkeypatch.setenv("DBW_SEED_EXEC", mode)
         p = tseeds.stacked_leaves([tseeds.stack_params([tm.init_params(seed=s) for s in ss])
                                    for ss in seeds])
-        gens = [[torch.Generator().manual_seed(s) for s in ss] for ss in seeds]
-        losses = scene_backward(tm, p, tm.phase_for_epoch(0), views, cams, gens)
+        gens = [torch.Generator().manual_seed(s) for ss in seeds for s in ss]
+        losses = scene_backward(tm, p, tm.phase_for_epoch(0), views, cams,
+                                tm.step_draws(p, gens))["total"]
         out[mode] = losses, {k: v.grad for k, v in p.items()}
     np.testing.assert_allclose(out["vmap"][0].numpy(), out["map"][0].numpy(), rtol=MAP_RTOL)
     for k, g in out["map"][1].items():
@@ -415,7 +442,8 @@ def test_batched_step_on_band_layout(tmp_path, monkeypatch):
     gens = [[torch.Generator().manual_seed(1000 * s + k) for s in SEEDS]
             for k in range(N_STEPS)]
     tm = _model(FULL_CFG)
-    draws = [[tseeds.slot_draws(tm, g) for g in gs] for gs in gens]
+    st = tseeds.stack_params([tm.init_params(seed=s) for s in SEEDS])
+    draws = [tm.step_draws(st, gs) for gs in gens]
     ranks = Ranks(tmp_path, 2, band_rank, draws)
     one_l, one_p = _band_steps(make_mesh(1, 1, world_size=1), draws)
     Hb = H // 2

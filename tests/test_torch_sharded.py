@@ -6,7 +6,7 @@ gloo (``test_torch_mesh.spawn_ranks``, 4 ranks).
   full loss stack (the perceptual loss among them) at 24x32, against the
   JAX package's ``MultiSeedRunner.step`` on the same layout over 4 of the
   8 CPU devices, and against the port's runner on one rank (itself
-  ``seed_step`` bit for bit). JAX's draws are passed in. Each rank of an
+  ``train_step`` without a mesh bit for bit). JAX's draws are passed in. Each rank of an
   ``sp`` axis selects faces for its own band of rows only. Tolerances
   (ROADMAP.md): loss rtol 2e-5 a step, parameters atol 3e-4 after 3
   steps, but the ground texture of seed 7 at 5e-4 (the JAX package's own
@@ -103,8 +103,8 @@ def _port_steps(mesh, cfg, train_cfg, k_ndc, seeds, imgs, R, T, draws):
     losses = []
     with raster_rows() as rows:
         for step in range(N_STEPS):
-            d = [dict(opacity_noise=torch.from_numpy(n), overlap_u=torch.from_numpy(u))
-                 for n, u in draws[step][sl]]
+            noise, ou = (torch.from_numpy(np.stack(a)) for a in zip(*draws[step][sl]))
+            d = dict(opacity_noise=noise, overlap_u=ou)
             losses.append(runner.step(params, phase, imgs, R, T, draws=d))
     return sl, torch.stack(losses), {k: p.detach() for k, p in params.items()}, rows
 
@@ -177,11 +177,11 @@ def test_sharded_step_matches_jax_and_one_rank(tmp_path, name):
 
 def test_one_rank_runner_is_seed_step():
     """On a mesh of one rank, whose collectives do nothing,
-    MultiSeedRunner.step is seed_step bit for bit: the trainer's one-card
-    path."""
+    MultiSeedRunner.step is ``train_step`` without a mesh bit for bit: the
+    trainer's one-card path."""
     from dbw_torch.ops.rotations import look_at_rotation
     from dbw_torch.parallel.mesh import make_mesh
-    from dbw_torch.parallel.seeds import MultiSeedRunner, seed_step, stacked_leaves
+    from dbw_torch.parallel.seeds import MultiSeedRunner, stacked_leaves, train_step
     from dbw_torch.train.optimizer import create_optimizer
     from dbw_torch.train.trainer import step_seed
     from test_torch_step import DEC_CFG, K_NDC, TRAIN_CFG
@@ -200,7 +200,7 @@ def test_one_rank_runner_is_seed_step():
         for k in range(N_STEPS):
             gens = [torch.Generator().manual_seed(step_seed(s, k)) for s in seeds]
             losses.append(runner.step(params, phase, imgs, R, T, gens) if one_rank else
-                          seed_step(tm, params, opt, phase, imgs, R, T, gens))
+                          train_step(tm, opt, params, phase, (imgs, R, T), gens)["total"])
         out.append((torch.stack(losses), {k: p.detach() for k, p in params.items()}))
     (la, pa), (lb, pb) = out
     assert torch.equal(la, lb)

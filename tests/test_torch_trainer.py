@@ -98,6 +98,52 @@ def test_loop_matches_jax_trainer(tmp_path, steps_per_call):
         assert "group" in kinds and "step" in kinds  # full groups and ragged tails
 
 
+def _cursor_schedule(epoch, start, n_batches, size, log_every, val_every):
+    """The schedule as the JAX trainers write it (a running iteration
+    cursor, the groups flushed when full and at the epoch's end) ->
+    [(batches, last iteration, do_log, do_val)]."""
+    cur, out, pending = (epoch - 1) * n_batches + start, [], []
+
+    def flush():
+        nonlocal cur
+        do_log = do_val = False
+        for _ in pending:
+            do_log |= bool(log_every) and cur % log_every == 0
+            do_val |= bool(val_every) and cur % val_every == 0
+            cur += 1
+        out.append((list(pending), cur - 1, do_log, do_val))
+
+    for b in range(start, n_batches + 1):
+        pending.append(b)
+        if len(pending) == size:
+            flush()
+            pending = []
+    if pending:
+        flush()
+    return out
+
+
+@pytest.mark.parametrize("size,batch_start,epoch,log_every,val_every", [
+    (1, 1, 1, 3, 5), (2, 1, 2, 3, 5), (3, 2, 1, 2, 4), (2, 4, 3, 3, 5), (4, 1, 2, 0, 3)])
+def test_epoch_groups_is_the_jax_schedule(size, batch_start, epoch, log_every, val_every):
+    """The one schedule of the three trainers (``epoch_groups``) against
+    the JAX trainers' cursor loop: 7 batches, the resume's batch_start in
+    the first epoch only, full groups and a ragged tail, the log and val
+    intervals each group crosses (an interval of 0: none)."""
+    from types import SimpleNamespace
+
+    from dbw_torch.train.trainer import epoch_groups
+
+    t = SimpleNamespace(epoch_start=1, batch_start=batch_start, n_batches=7,
+                        steps_per_call=size, train_stat_interval=log_every,
+                        val_stat_interval=val_every)
+    got = [([b for b, _ in g], it, do_log, do_val)
+           for g, it, do_log, do_val in epoch_groups(t, epoch, iter("abcdefg"))]
+    start = batch_start if epoch == 1 else 1
+    assert got == _cursor_schedule(epoch, start, 7, size, log_every, val_every)
+    assert [b for g, *_ in got for b in g] == list(range(start, 8))
+
+
 def _quali_files(n_views=2):
     names = ["mesh.obj", "mesh.mtl", "mesh.png", "mesh_full.obj", "gt.ply",
              "index.html", "textures/bkg.png", "textures/ground.png",
