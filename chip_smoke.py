@@ -13,9 +13,11 @@ Phases, one line each (or a few):
    band path's; the blend's pair K6 at the blocks and env passes' K on
    seeded colours and alphas with exact 0s and 1s; the LPIPS pair K7 at the
    five VGG16 slice shapes of each benchmark cell's views, 20 renders
-   against 4 targets), with both times (CUDA events around runs of 20
-   calls), K3's, K5's, K6's and K7's device time per launch from a
-   profiler trace, the kernel's bound (the larger of its
+   against 4 targets; the quad sample's forward K8, bit for bit, on the
+   passes' own fragments and at each benchmark cell's blocks and env
+   passes, 20 views, with uv ramps over the views), with both times (CUDA
+   events around runs of 20 calls), K3's, K5's, K6's, K7's and K8's device
+   time per launch from a profiler trace, the kernel's bound (the larger of its
    bytes over the card's memory rate and its operations over the float32
    rate) and, for K4 and K5, the time of one PyTorch ``index_add_`` that
    computes the same sums;
@@ -96,12 +98,12 @@ Phases, one line each (or a few):
 13. lit: the shipped config at full width with only the renderer's
    shading_type (flat, gouraud, phong), lights (directional, point) and
    cameras (fov) overridden takes 3 Adam steps of each lit type: finite
-   losses, K1 (soft and hard), K4 and the blend (K6) launched in every
-   step and no other kernel (the lit path interpolates in tensor code, as
-   the JAX package does); K1 and K4 against their plain twins at the lit
-   path's shapes (blocks pass: K1 soft slot for slot, K4; env pass: K1
-   hard, K4; K4 on the valid fragments, which are all that the lit path
-   shades) and a profiler trace of the phong step;
+   losses, K1 (soft and hard), K4, K8 and the blend (K6) launched in
+   every step and no other kernel (the lit path interpolates in tensor
+   code, as the JAX package does); K1, K4 and K8 against their plain twins
+   at the lit path's shapes (blocks pass: K1 soft slot for slot, K4, K8;
+   env pass: K1 hard, K4, K8; K4 and K8 on the valid fragments, which are
+   all that the lit path shades) and a profiler trace of the phong step;
    then 3 steps with each of the six other optimizers, 2 steps with each
    RGB criterion, and a model.pkl resume of adamw that reproduces the next
    step;
@@ -215,6 +217,8 @@ SOURCES = {
     # no TPU kernel: the JAX LPIPS distance is XLA's
     "K7_lpips_fwd": ("dbw_torch/csrc/lpips.cu", "dbw_tpu/losses/vgg.py:231 (XLA)"),
     "K7_lpips_bwd": ("dbw_torch/csrc/lpips.cu", "dbw_tpu/losses/vgg.py:231 (XLA)"),
+    # no TPU kernel: the JAX quad sample's forward is XLA's gather
+    "K8_quad_fwd": ("dbw_torch/csrc/texel.cu", "dbw_tpu/render/meshes.py:195 (XLA)"),
 }
 # the kernels of the training step (the main path's); the viz and eval
 # renders add K1_select_hard_ss, the hard selection at 4x supersampling
@@ -272,7 +276,7 @@ LIT_CASES = (("flat", "directional"), ("gouraud", "point"), ("phong", "direction
 LIT_LIGHTS = {"directional": dict(name="directional", direction=[[1.0, 0.25, -1.0]]),
               "point": dict(name="point", location=[[0.5, 2.0, -2.5]])}
 LIT_KERNELS = ("K1_select", "K1_select_hard", "K4_texel_grad", "K6_blend_fwd",
-               "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd")
+               "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd", "K8_quad_fwd")
 N_LIT_STEPS = 3
 OTHER_OPTIMIZERS = ("sgd", "adamw", "adamax", "rmsprop", "adagrad", "adadelta")
 CRITERIA = ("bce", "mse", "l2", "l1", "huber", "perceptual", "lpips", "ssim")
@@ -305,7 +309,8 @@ NN_POINTS = 20_000
 NN_TIE_REL = 1e-5
 # kernels of the joint-rendering path (no env pass)
 JOINT_KERNELS = ("K1_select", "K2_frag_fwd", "K3_frag_bwd", "K4_texel_grad",
-                 "K6_blend_fwd", "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd")
+                 "K6_blend_fwd", "K6_blend_bwd", "K7_lpips_fwd", "K7_lpips_bwd",
+                 "K8_quad_fwd")
 # kernels of the backward, held against their plain twins in the band phase
 BACKWARD_KERNELS = ("K3_frag_bwd", "K4_texel_grad", "K5_small_scatter")
 # the pixel bands of the band phase: (row0, Hb) of 2 and of 3 bands
@@ -316,24 +321,32 @@ BAND_SPLITS = {"2 bands": ((0, 150), (150, 150)),
 # float32 rate of one H100 SXM (NVIDIA's data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# floating-point operations per fragment (K2, K3, K4), row (K5) or pixel
-# slot (K6) or rendered feature value (K7), counted from the expressions of
-# csrc/fragment.cu, texel.cu, scatter.cu, blend.cu and lpips.cu; K1's per
-# pixel-face pair is rasterize.FLOPS_PER_PAIR, from csrc/raster.cu
+# floating-point operations per fragment (K2, K3, K4, K8), row (K5) or
+# pixel slot (K6) or rendered feature value (K7), counted from the
+# expressions of csrc/fragment.cu, texel.cu, scatter.cu, blend.cu and
+# lpips.cu; K1's per pixel-face pair is rasterize.FLOPS_PER_PAIR, from
+# csrc/raster.cu
 FLOPS_PER_ITEM = {"K2_frag_fwd": 140, "K3_frag_bwd": 260, "K4_texel_grad": 32,
                   "K5_small_scatter": 12, "K6_blend_fwd": 9, "K6_blend_bwd": 28,
-                  "K7_lpips_fwd": 11, "K7_lpips_bwd": 26}
+                  "K7_lpips_fwd": 11, "K7_lpips_bwd": 26, "K8_quad_fwd": 30}
 # kernels whose device time per launch phase 3 also reads from a profiler
 # trace, by the name of their device kernel
 DEVICE_KERNELS = {"K3_frag_bwd": "frag_bwd_kernel", "K5_small_scatter": "small_scatter_kernel",
                   "K6_blend_fwd": "blend_fwd_kernel", "K6_blend_bwd": "blend_bwd_kernel",
-                  "K7_lpips_fwd": "lpips_fwd_kernel", "K7_lpips_bwd": "lpips_bwd_kernel"}
+                  "K7_lpips_fwd": "lpips_fwd_kernel", "K7_lpips_bwd": "lpips_bwd_kernel",
+                  "K8_quad_fwd": "quad_sample_fwd_kernel"}
 # K7's checks: the five VGG16 slice shapes (C channels, the view halved by
 # each pool) of each benchmark cell's views, 20 renders (5 slots of 4
 # views) against the 4 targets they share
 LPIPS_CELLS = {"campanile": (540, 960), "dtu24": (300, 400), "gundam50": (288, 384)}
 LPIPS_SLICE_CHANNELS = (64, 128, 256, 512, 512)
 LPIPS_RENDERS, LPIPS_TARGETS = 20, 4
+# K8's checks at the benchmark cells' shapes: 20 views (5 slots of 4) of
+# LPIPS_CELLS' sizes through the blocks pass (K = 10, each slot's blocks'
+# maps) and the env pass (K = 1, each slot's dome and ground maps), every
+# slot's maps stacked in one atlas of QUAD_ATLAS_HW maps
+QUAD_BLOCKS = {"campanile": 10, "dtu24": 10, "gundam50": 50}
+QUAD_SLOTS, QUAD_ATLAS_HW = 5, (256, 279)
 # the mesh phase: MESH_RANKS ranks on card 0 under gloo (NCCL refuses two
 # ranks on one device). Each layout takes MESH_STEPS Adam steps of seed
 # MESH_SEED on the main path's inputs; the 5-seed protocol takes its
@@ -361,7 +374,7 @@ BENCH_TIMEOUT_S = 300
 BENCH_STEP_LAUNCHES = {"K1_select": 1, "K1_select_hard": 1, "K2_frag_fwd": 1,
                        "K3_frag_bwd": 1, "K4_texel_grad": 2, "K5_small_scatter": 1,
                        "K6_blend_fwd": 2, "K6_blend_bwd": 2, "K7_lpips_fwd": 5,
-                       "K7_lpips_bwd": 5}
+                       "K7_lpips_bwd": 5, "K8_quad_fwd": 2}
 # the bench trace (scripts/torch_trace_bench.py): steps traced, ops listed
 N_TRACE_STEPS = 3
 TRACE_TOP = 10
@@ -614,6 +627,7 @@ def check_soft_pass(checks, path, model, scene, phase, R, T, gen, plain_runs=20,
 
     check_frag_bwd(checks, path, table, ids, vld, px, py, sigma, flags,
                    rcfg.faces_per_pixel, gen, plain_runs)
+    check_quad_sample(checks, path, scene.atlas.maps.reshape(-1, 3), *out[:3], TW, plain_runs)
 
     # K4, in the pass's (P, K) fragment layout
     g = torch.randn((ids.numel(), 3), generator=gen, device=ids.device) * vld[:, None]
@@ -658,6 +672,71 @@ def check_band_frag_bwd(checks, model, scene, phase, R, T, gen):
     M, TH, TW = scene.atlas.maps.shape[:3]
     flags = fr.FragFlags(True, True, rend.config.clip_inside, TH, TW)
     check_frag_bwd(checks, "band", *streams, sigma, flags, rcfg.faces_per_pixel, gen)
+
+
+def check_quad_sample(checks, path, maps_flat, id00, wx, wy, TW, plain_runs=20):
+    """K8 against its plain twin, bit for bit, and its bound: 24 bytes a
+    fragment (id00, wx, wy read, the colour written)."""
+    from dbw_torch.render import meshes
+
+    args = (maps_flat, id00, wx, wy, TW)
+    got = meshes.quad_forward_cuda(*args)
+    ref = meshes.quad_forward_plain(*args)
+    same = torch.equal(got, ref)
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    N = id00.numel()
+    say("kernels", f"K8 quad sample [{path}, N={N}, R={maps_flat.shape[0]}]: equal to the "
+        f"plain twin {same}, max |d| {err:.3g} (tolerance: none, bitwise)")
+    record(checks, "K8_quad_fwd", path, err, same,
+           lambda: meshes.quad_forward_cuda(*args), lambda: meshes.quad_forward_plain(*args),
+           bound(nbytes(id00, wx, wy, got), N * FLOPS_PER_ITEM["K8_quad_fwd"], items=N),
+           plain_runs=plain_runs)
+
+
+def quad_cell_inputs(H, W, K, M, gen):
+    """A pass's K8 inputs at a cell's shapes: QUAD_SLOTS * 4 views of H x W
+    pixels, K slots a pixel, in the layout n = pixel * K + slot; an atlas of
+    M maps (each view's slot of the batch samples its own M / QUAD_SLOTS).
+    Slot k of a view samples one map with uv a ramp over the view (about a
+    texel a pixel, as a block face filling the view), shifted by the slot
+    and the view, so that neighbouring pixels share texels as a render's
+    do; the last view's pixels sample the atlas's last rows (uv 1 and 0 of
+    the last map)."""
+    from dbw_torch.render.fragment import texel_coords
+
+    dev = gen.device
+    TH, TW = QUAD_ATLAS_HW
+    V = QUAD_SLOTS * 4
+    v = torch.arange(V, device=dev)[:, None, None, None]
+    y = torch.arange(H, device=dev)[None, :, None, None]
+    x = torch.arange(W, device=dev)[None, None, :, None]
+    k = torch.arange(K, device=dev)[None, None, None, :]
+    per_slot = M // QUAD_SLOTS
+    mi = (v // 4) * per_slot + (k + v) % per_slot
+    jitter = torch.rand((V, 1, 1, K, 2), generator=gen, device=dev)
+    u = torch.remainder(x / TW + jitter[..., 0], 1.0)
+    w = torch.remainder(y / TH + jitter[..., 1], 1.0)
+    u = torch.where(v == V - 1, torch.ones_like(u), u)
+    w = torch.where(v == V - 1, torch.zeros_like(w), w)
+    mi = torch.where(v == V - 1, torch.full_like(mi, M - 1), mi)
+    shape = (V, H, W, K)
+    id00, wx, wy = texel_coords(u.expand(shape).reshape(-1), w.expand(shape).reshape(-1),
+                                mi.expand(shape).reshape(-1), TH, TW)
+    maps_flat = torch.rand((M * TH * TW, 3), generator=gen, device=dev)
+    return maps_flat, id00, wx, wy
+
+
+def check_quad_cells(checks, gen):
+    """K8 against its plain twin at each benchmark cell's blocks and env
+    pass shapes (``quad_cell_inputs``)."""
+    TW = QUAD_ATLAS_HW[1]
+    for cell, (H, W) in LPIPS_CELLS.items():
+        for label, K, M in (("blocks pass", 10, QUAD_SLOTS * QUAD_BLOCKS[cell]),
+                            ("env pass", 1, QUAD_SLOTS * 2)):
+            args = quad_cell_inputs(H, W, K, M, gen)
+            check_quad_sample(checks, f"{cell} {label}", *args, TW)
+            del args
+            torch.cuda.empty_cache()
 
 
 def check_texel_grad(checks, path, id00, wx, wy, g, R, TW, K, plain_runs=20):
@@ -711,6 +790,8 @@ def check_env_pass(checks, model, params, phase, R, T, gen, path="env pass", pla
     M, TH, TW = env.atlas.maps.shape[:3]
     id00, wx, wy = texel_coords(uv_u, uv_v, rows[:, 18], TH, TW)
     N = eidx.numel()
+    check_quad_sample(checks, path, env.atlas.maps.reshape(-1, 3), id00, wx, wy, TW,
+                      plain_runs)
 
     # K4 (the d_maps of sample_quad_diff), K = 1
     g = torch.randn((N, 3), generator=gen, device=eidx.device) * evld[:, None]
@@ -926,6 +1007,7 @@ def phase_kernels(model, device):
         check_env_pass(checks, model, params, phase, R, T, gen)
         check_blend(checks, model, N_VIEWS, gen)
         check_lpips(checks, gen)
+        check_quad_cells(checks, gen)
         joint, _, _ = model.build_scene(params, phase, noise=noise)
         check_soft_pass(checks, "joint", model, joint, phase, R, T, gen)
         check_band_frag_bwd(checks, model, blocks, phase, R, T, gen)
@@ -1365,7 +1447,8 @@ def plain_twins():
             "K4_texel_grad": (meshes, "quad_maps_grad",
                               lambda *a: texel_grad.quad_maps_grad_plain(*a[:-1])),
             "K5_small_scatter": (scatter, "small_table_scatter_add",
-                                 scatter.small_table_scatter_add_plain)}
+                                 scatter.small_table_scatter_add_plain),
+            "K8_quad_fwd": (meshes, "quad_forward", meshes.quad_forward_plain)}
 
 
 @contextlib.contextmanager
@@ -2618,8 +2701,8 @@ def phase_scenes(device, step_launches):
 
 
 def check_lit_pass(checks, path, rend, scene, R, T, gen, sigma=None):
-    """K1 (soft, or hard for the env renderer) and K4 against their plain
-    twins on the fragments of a lit renderer's pass, formed as
+    """K1 (soft, or hard for the env renderer), K8 and K4 against their
+    plain twins on the fragments of a lit renderer's pass, formed as
     Renderer.shade_lit forms them (the valid fragments' flat attributes, the
     uv interpolated from the corner table, the texel coordinates). The plain
     K1 twin is timed over fewer calls (it takes ~0.1 s a call)."""
@@ -2654,6 +2737,8 @@ def check_lit_pass(checks, path, rend, scene, R, T, gen, sigma=None):
     uv = interp_corner_table(ff, scene.uv_verts[scene.uv_faces].reshape(F, 6))
     M, TH, TW = scene.atlas.maps.shape[:3]
     id00, wx, wy = texel_coords(uv[:, 0], uv[:, 1], scene.map_idx[ff.idx], TH, TW)
+    check_quad_sample(checks, path, scene.atlas.maps.reshape(-1, 3), id00.contiguous(),
+                      wx.contiguous(), wy.contiguous(), TW)
     g = torch.randn((id00.numel(), 3), generator=gen, device=id00.device)
     check_texel_grad(checks, path, id00.contiguous(), wx.contiguous(), wy.contiguous(), g,
                      M * TH * TW, TW, 1)
@@ -3040,6 +3125,9 @@ def main():
 
     per_step["viz/eval scene"] = per_step["viz/eval blocks"] = {
         n: 0.0 for n in SOURCES}
+    # K8's checks at the cells' shapes: the step launches K8 in both passes
+    for cell in LPIPS_CELLS:
+        per_step[f"{cell} blocks pass"] = per_step[f"{cell} env pass"] = per_step["blocks pass"]
     # K7's checks are a slice each: the step launches K7 once a slice
     for cell in LPIPS_CELLS:
         for k in range(len(LPIPS_SLICE_CHANNELS)):

@@ -1,4 +1,5 @@
-// K4: texture-atlas gradient of the bilinear quad sample.
+// K4: texture-atlas gradient of the bilinear quad sample; K8, the sample's
+// forward, is at the end of this file.
 //
 // Replaces dbw_tpu/ops/segment_sum_pallas.py `_kernel` (reached through
 // `quad_corner_segment_sums` from render/meshes.py::_quad_maps_grad). The TPU
@@ -156,5 +157,100 @@ extern "C" int dbw_texel_grad(const int32_t* id00, const float* wx,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   texel_pack_kernel<<<(R + THREADS - 1) / THREADS, THREADS, 0, stream>>>(acc4, R, dmaps);
+  return (int)cudaGetLastError();
+}
+
+// K8: the bilinear quad texture sample's forward, the colour of each
+// fragment from the 2x2 texel neighbourhood at its base texel id00.
+//
+// Replaces no TPU kernel: in dbw_tpu it is XLA's gather of a quad table
+// and weighted sum (render/meshes.py:195 `_quad_forward`); the plain twin is
+// dbw_torch/render/meshes.py::quad_forward_plain, which launches 41 PyTorch
+// ops over (N, 3) temporaries and int64 indices, ~778 bytes of device
+// traffic a fragment.
+//
+// Bound: the bytes, 12 per fragment read (id00, wx, wy) and 12 written (the
+// colour); the four texel rows come from the atlas, a few MB a slot, which
+// stays in the 50 MB L2 across the pass's neighbouring fragments. 2.5 GB
+// for `campanile`'s blocks pass (103.7 M fragments), 0.74 ms at 3.35 TB/s.
+//
+// Design: one thread a fragment, no shared state between fragments, so the
+// kernel does not depend on K or on the fragment layout. The id00, wx, wy
+// reads are coalesced over consecutive fragments; the (N, 3) colours are
+// staged in shared memory and stored as coalesced 16-byte words. The
+// arithmetic is the plain twin's, in its order: the weights (1-wx)(1-wy),
+// wx(1-wy), (1-wx)wy, wx wy, and per channel the sum
+// (((0 + q00 w00) + q01 w01) + q10 w10) + q11 w11, each product and sum
+// rounded to float32 (the build's --fmad=false keeps them apart), so the
+// colours equal the plain twin's bit for bit. As there, row id00 is clamped
+// to R - 1 and a corner row at R or beyond reads zero (times its weight).
+
+namespace {
+
+constexpr int QS_THREADS = 256;
+
+// The texel row t of an (R, 3) atlas as PyTorch's indexing reads it: a
+// negative t counts from the end; outside [-R, R) it reads zero.
+__device__ __forceinline__ void texel_row(const float* __restrict__ maps, int64_t t,
+                                          int64_t R, float q[3]) {
+  const bool in = t < R && t >= -R;
+  const float* p = maps + 3 * (t < 0 ? t + R : t);
+  q[0] = in ? __ldg(p) : 0.0f;
+  q[1] = in ? __ldg(p + 1) : 0.0f;
+  q[2] = in ? __ldg(p + 2) : 0.0f;
+}
+
+__global__ void __launch_bounds__(QS_THREADS)
+quad_sample_fwd_kernel(const float* __restrict__ maps, const int32_t* __restrict__ id00,
+                       const float* __restrict__ wx, const float* __restrict__ wy,
+                       int64_t N, int64_t R, int TW, bool vec, float* __restrict__ out) {
+  __shared__ __align__(16) float so[3 * QS_THREADS];
+  const int64_t n0 = (int64_t)blockIdx.x * QS_THREADS;
+  const int64_t n = n0 + threadIdx.x;
+  if (n < N) {
+    const float fx = wx[n], fy = wy[n];
+    const float ax = 1.0f - fx, ay = 1.0f - fy;
+    const float w[4] = {ax * ay, fx * ay, ax * fy, fx * fy};
+    const int64_t base = id00[n];
+    const int64_t offs[4] = {0, 1, TW, TW + 1};
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int64_t t = c == 0 ? (base < R - 1 ? base : R - 1) : base + offs[c];
+      float q[3];
+      texel_row(maps, t, R, q);
+      c0 = c0 + q[0] * w[c];
+      c1 = c1 + q[1] * w[c];
+      c2 = c2 + q[2] * w[c];
+    }
+    so[3 * threadIdx.x] = c0;
+    so[3 * threadIdx.x + 1] = c1;
+    so[3 * threadIdx.x + 2] = c2;
+  }
+  __syncthreads();
+  const int64_t cnt = N - n0 < QS_THREADS ? N - n0 : QS_THREADS;
+  float* o = out + 3 * n0;
+  if (vec && cnt == QS_THREADS) {
+    for (int i = threadIdx.x; i < 3 * QS_THREADS / 4; i += QS_THREADS)
+      reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(so)[i];
+  } else {
+    for (int i = threadIdx.x; i < 3 * cnt; i += QS_THREADS) o[i] = so[i];
+  }
+}
+
+}  // namespace
+
+// maps: (R, 3) f32 atlas rows; id00: (N,) i32 base texels; wx, wy: (N,)
+// f32; out: (N, 3) f32, written.
+extern "C" int dbw_quad_sample_fwd(const float* maps, const int32_t* id00, const float* wx,
+                                   const float* wy, long long N, long long R, int TW,
+                                   float* out, cudaStream_t stream) {
+  if (N < 0 || R < 0 || TW < 1 || (N > 0 && R == 0)) return (int)cudaErrorInvalidValue;
+  if (N == 0) return -1;  // nothing to launch
+  // 16-byte stores need a 16-byte aligned base (a full block's 3072 bytes keep it)
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const long long blocks = (N + QS_THREADS - 1) / QS_THREADS;
+  quad_sample_fwd_kernel<<<(unsigned)blocks, QS_THREADS, 0, stream>>>(
+      maps, id00, wx, wy, (int64_t)N, (int64_t)R, TW, vec, out);
   return (int)cudaGetLastError();
 }

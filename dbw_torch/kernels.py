@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 LAUNCHES = {"K1_select": 0, "K1_select_hard": 0, "K1_select_hard_ss": 0,
             "K2_frag_fwd": 0, "K3_frag_bwd": 0, "K4_texel_grad": 0,
             "K5_small_scatter": 0, "K6_blend_fwd": 0, "K6_blend_bwd": 0,
-            "K7_lpips_fwd": 0, "K7_lpips_bwd": 0}
+            "K7_lpips_fwd": 0, "K7_lpips_bwd": 0, "K8_quad_fwd": 0}
 # a launcher's return code for an empty input (no kernel launched)
 NOTHING_LAUNCHED = -1
 
@@ -45,6 +45,7 @@ _SIGNATURES = {
                      _P, _P, _P, _P, _P],
     "dbw_frag_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
     "dbw_texel_grad": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "dbw_quad_sample_fwd": [_P, _P, _P, _P, _L, _L, _I, _P, _P],
     "dbw_small_scatter": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "dbw_blend_fwd": [_P, _P, _I, _I, _F, _F, _F, _P, _P],
     "dbw_blend_bwd": [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P],

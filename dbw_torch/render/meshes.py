@@ -1,6 +1,7 @@
 """Static-topology scene mesh and texture atlas (PyTorch port of
 dbw_tpu/render/meshes.py: the quad texture samples, ``sample_atlas_bilinear``
-and ``face_normals``).
+and ``face_normals``). The quad sample's forward is K8 (csrc/texel.cu) for
+CUDA tensors, its backward the texel-gradient kernel K4.
 
 A scene is a fixed set of flat tensors; dead blocks are collapsed in place,
 never removed, so shapes never change during optimization.
@@ -19,6 +20,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .. import kernels
 from ..ops.texel_grad import corner_weights, quad_maps_grad
 from .fragment import texel_coords
 
@@ -85,14 +87,48 @@ def face_normals(verts, faces):
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
-def quad_forward(maps_flat, id00, wx, wy, TW):
-    """Bilinear sample from the 2x2 texel neighbourhood at base texel id00:
-    maps_flat (R, C), id00 (N,) int, wx/wy (N,) -> (N, C). Corners past the
-    end of the atlas read zero (they only occur with zero weight)."""
+def quad_forward_plain(maps_flat, id00, wx, wy, TW):
+    """Plain K8: the bilinear sample from the 2x2 texel neighbourhood at base
+    texel id00: maps_flat (R, C), id00 (N,) int, wx/wy (N,) -> (N, C).
+    Corners past the end of the atlas read zero (they only occur with zero
+    weight)."""
     out = 0.0
     for off, w in zip((0, 1, TW, TW + 1), corner_weights(wx, wy)):
         out = out + quad_corner(maps_flat, id00, off) * w[:, None]
     return out
+
+
+def quad_forward_cuda(maps_flat, id00, wx, wy, TW):
+    """K8 kernel launch: the (N, 3) float32 colours of N fragments from an
+    (R, 3) float32 atlas, int32 id00 and float32 wx, wy (views are made
+    contiguous); equal to ``quad_forward_plain`` bit for bit."""
+    N = id00.shape[0]
+    if (maps_flat.ndim != 2 or maps_flat.shape[1] != 3 or id00.ndim != 1
+            or tuple(wx.shape) != (N,) or tuple(wy.shape) != (N,)
+            or (N and not maps_flat.shape[0])):
+        raise ValueError(f"quad_forward_cuda: maps_flat {tuple(maps_flat.shape)}, id00 "
+                         f"{tuple(id00.shape)}, wx {tuple(wx.shape)}, wy {tuple(wy.shape)}")
+    dtypes = (maps_flat.dtype, id00.dtype, wx.dtype, wy.dtype)
+    if dtypes != (torch.float32, torch.int32, torch.float32, torch.float32):
+        raise ValueError(f"quad_forward_cuda: dtypes {dtypes}, expected float32 maps_flat, "
+                         "int32 id00, float32 wx and wy")
+    maps_flat, id00, wx, wy = (t.contiguous() for t in (maps_flat, id00, wx, wy))
+    ptrs = [kernels.check(maps_flat, torch.float32, "maps_flat"),
+            kernels.check(id00, torch.int32, "id00"),
+            kernels.check(wx, torch.float32, "wx"),
+            kernels.check(wy, torch.float32, "wy")]
+    out = torch.empty((N, 3), dtype=torch.float32, device=id00.device)
+    kernels.launch("dbw_quad_sample_fwd", "K8_quad_fwd", *ptrs, N, maps_flat.shape[0],
+                   int(TW), out.data_ptr())
+    return out
+
+
+def quad_forward(maps_flat, id00, wx, wy, TW):
+    """The bilinear quad sample's forward: K8 for CUDA tensors,
+    ``quad_forward_plain`` for CPU tensors."""
+    if id00.is_cuda:
+        return quad_forward_cuda(maps_flat, id00, wx, wy, TW)
+    return quad_forward_plain(maps_flat, id00, wx, wy, TW)
 
 
 class _SampleQuad(torch.autograd.Function):

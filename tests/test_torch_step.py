@@ -235,6 +235,7 @@ def _route_to_plain_twins(monkeypatch):
     # the plain twin takes no K: the fragment layout does not change its sums
     monkeypatch.setattr(meshes, "quad_maps_grad",
                         lambda *a: texel_grad.quad_maps_grad_plain(*a[:-1]))
+    monkeypatch.setattr(meshes, "quad_forward", meshes.quad_forward_plain)
     monkeypatch.setattr(scatter, "small_table_scatter_add",
                         scatter.small_table_scatter_add_plain)
     monkeypatch.setattr(renderer, "layered_blend", blend.layered_blend_plain)
